@@ -1,0 +1,143 @@
+"""Build and load the CUDA kernels: ``nvcc`` into one shared library with a
+plain C interface, loaded with ``ctypes``.
+
+The library is built at first use into ``kernels/_build/`` (listed in
+``.gitignore``).  Its file name carries a hash of every source and of the
+flags, so a stale library is never loaded.  Each ``.cu`` compiles in its own
+``nvcc`` process, all started together, and one link makes the library.
+A missing ``nvcc`` or a failed build raises; nothing falls back.
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["build", "load", "check", "pointers", "stream"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD = Path(__file__).resolve().parent / "_build"
+_SOURCES = ("mrc.cu", "modmul.cu", "rns_compare.cu")
+# sm_90a (Hopper); IEEE division and no FMA contraction of the Barrett
+# product are the defaults — never add --use_fast_math (see common.cuh).
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    # name: (x..., out, tables..., ints..., B, stream)
+    "rns_mrc": [_P, _P, _P, _P, _I, _L, _P],
+    "rns_modmul": [_P, _P, _P, _P, _I, _L, _P],
+    "rns_compare": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P],
+}
+
+
+def _nvcc() -> str:
+    """``nvcc`` on the PATH, else under ``$CUDA_HOME`` (default
+    ``/usr/local/cuda``, the toolkit's install location)."""
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_ARCH + _FLAGS).encode())
+    for p in sorted(_CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile the kernels if their library is not built yet.
+
+    Returns ``{"path", "seconds", "built", "ptxas"}``: ``ptxas`` maps each
+    source to the ``-Xptxas -v`` lines (registers, shared memory, spills)
+    of a fresh build, and is empty when the library was already there.
+    """
+    lib = _BUILD / f"librns_kernels_{_digest()}.so"
+    if lib.exists():
+        return {"path": str(lib), "seconds": 0.0, "built": False, "ptxas": {}}
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        procs = {}
+        for src in _SOURCES:
+            obj = os.path.join(tmp, src + ".o")
+            cmd = [nvcc, *_ARCH, *_FLAGS, "-c", str(_CSRC / src), "-o", obj]
+            procs[src] = (obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs, failed = {}, []
+        for src, (_, proc) in procs.items():
+            out, _ = proc.communicate()
+            logs[src] = out
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(
+                "nvcc failed for " + ", ".join(failed) + ":\n"
+                + "\n".join(logs[s] for s in failed))
+        part = os.path.join(tmp, lib.name)
+        link = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", part,
+             *(obj for obj, _ in procs.values())],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(part, lib)  # atomic: a concurrent build never sees half a file
+    ptxas = {s: [ln.strip() for ln in log.splitlines()
+                 if "ptxas" in ln or "spill" in ln]
+             for s, log in logs.items()}
+    return {"path": str(lib), "seconds": time.perf_counter() - t0,
+            "built": True, "ptxas": ptxas}
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with typed entry points."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def pointers(what: str, *tensors) -> list[int]:
+    """Device pointers of a kernel's int32 operands, after checking that
+    they are contiguous int32 tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{what}: operands must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous int32, "
+                             f"got {t.dtype} (contiguous={t.is_contiguous()})")
+    return [t.data_ptr() for t in tensors]
+
+
+def stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (it returns
+    ``cudaGetLastError()`` right after its launch)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

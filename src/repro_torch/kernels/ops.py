@@ -1,0 +1,158 @@
+"""Public wrappers for the RNS kernels: ``mrc_op``, ``modmul_op``,
+``compare_op``.
+
+They present the same channels-last ``(..., n)`` API as ``repro_torch.core``
+and handle:
+
+* layout: flatten the batch and transpose to the kernels' channel-major
+  (n, B) int32 tiles (no copy when the operand is already channel-major,
+  e.g. an ``RnsArray`` with ``channel_axis=0``), and back, with the output
+  cast to the input dtype;
+* the device: a CUDA tensor launches the kernel — there is no fallback — and
+  a CPU tensor takes the kernel's plain torch version;
+* constraints: the kernels need 15-bit (int32-lane) bases; wider bases
+  raise here (``repro_torch.core`` serves them);
+* ``RnsArray`` operands in place of the ``base, x[, xa]`` argument group.
+  ``modmul_op`` on such operands reduces ALL channels, redundant rows
+  included, each in its own modulus, and returns an ``RnsArray``.
+
+Each wrapper counts its kernel launches in ``<op>.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.array import RnsArray
+from ..core.base import RNSBase
+from .modmul import modmul_kernel_call, modmul_plain
+from .mrc import mrc_kernel_call, mrc_plain
+from .rns_compare import compare_kernel_call, compare_plain
+
+__all__ = ["mrc_op", "modmul_op", "compare_op", "reset_launches"]
+
+
+def _on_card(t) -> bool:
+    """True for a CUDA tensor (kernel), False for a CPU one (plain)."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type == "cuda"
+    raise ValueError(f"RNS kernels run on CUDA or CPU tensors, not {t.device}")
+
+
+def _check_bits(base: RNSBase):
+    if base.bits > 15:
+        raise ValueError("the RNS kernels require bits<=15 (int32 lanes); "
+                         "use repro_torch.core for wider bases")
+
+
+def _tiles(x, nch: int):
+    """(..., nch) -> contiguous (nch, B) int32 tile, plus the batch shape."""
+    return x.reshape(-1, nch).T.contiguous().to(torch.int32), x.shape[:-1]
+
+
+def _untile(out_t, lead, nch: int, dtype):
+    return out_t.T.reshape(*lead, nch).to(dtype)
+
+
+def mrc_op(base, x=None):
+    """Mixed-radix digits of ``x: (..., n)`` via the MRC kernel.
+
+    Also callable as ``mrc_op(arr)`` with an ``RnsArray`` — digits of the
+    base channels, channels-last.
+    """
+    if isinstance(base, RnsArray):
+        base, x = base.base, base.x
+    _check_bits(base)
+    dev = x.device
+    xt, lead = _tiles(x, base.n)
+    inv = base.tensor("inv_tri_np", dev, torch.int32)
+    m = base.tensor("moduli_np", dev, torch.int32)
+    if _on_card(x):
+        out = mrc_kernel_call(xt, inv, m)
+        mrc_op.launches += 1
+    else:
+        out = mrc_plain(xt, inv, m)
+    return _untile(out, lead, base.n, x.dtype)
+
+
+def modmul_op(base, x=None, y=None):
+    """Channel-wise (x * y) mod m_i via the modmul kernel.
+
+    Also callable as ``modmul_op(a, b)`` with two ``RnsArray`` operands of
+    matching base/layout: every channel then reduces in its own modulus
+    (redundant rows included) and the result comes back typed.
+    """
+    arr = None
+    if isinstance(base, RnsArray):
+        arr, other = base, x
+        if not isinstance(other, RnsArray):
+            raise TypeError("modmul_op(a, b) needs both operands as RnsArray")
+        other = arr._lift(other)  # validates matching base/layout/mb
+        base = arr.base
+        x, y = arr.to_packed(), other.to_packed()
+        table = ("moduli_with", arr.redundant_moduli)
+    else:
+        table = "moduli_np"
+    _check_bits(base)
+    if x.shape != y.shape:
+        raise ValueError(f"modmul_op: shapes {tuple(x.shape)} and "
+                         f"{tuple(y.shape)} differ")
+    m = base.tensor(table, x.device, torch.int32)
+    nch = m.numel()
+    xt, lead = _tiles(x, nch)
+    yt, _ = _tiles(y, nch)
+    if _on_card(x):
+        out = modmul_kernel_call(xt, yt, m)
+        modmul_op.launches += 1
+    else:
+        out = modmul_plain(xt, yt, m)
+    out = _untile(out, lead, nch, x.dtype)
+    if arr is None:
+        return out
+    return RnsArray(
+        out, base, layout=arr.layout, signed=arr.signed or other.signed,
+        channel_axis=-1, mb=arr.mb,
+    ).with_channel_axis(arr.channel_axis)
+
+
+def compare_op(base, x1=None, xa1=None, x2=None, xa2=None):
+    """Fused Algorithm 1: boolean (N1 >= N2) for batched operands.
+
+    x1, x2: (..., n); xa1, xa2: (...,).  Also callable as
+    ``compare_op(a, b)`` with two ``RnsArray`` operands (BASE_MA or RRNS
+    layout — the m_a channel drives Theorem 1).
+    """
+    if isinstance(base, RnsArray):
+        a, b = base, x1
+        if not isinstance(b, RnsArray):
+            raise TypeError("compare_op(a, b) needs both operands as RnsArray")
+        b = a._lift(b)  # validates matching base/layout/mb
+        base, x1, xa1, x2, xa2 = a.base, a.x, a.xa, b.x, b.xa
+    _check_bits(base)
+    dev = x1.device
+    x1t, lead = _tiles(x1, base.n)
+    x2t, _ = _tiles(x2.expand(x1.shape), base.n)
+    a1 = xa1.expand(lead).reshape(-1).to(torch.int32).contiguous()
+    a2 = xa2.expand(lead).reshape(-1).to(torch.int32).contiguous()
+    tables = (base.tensor("inv_tri_np", dev, torch.int32),
+              base.tensor("moduli_np", dev, torch.int32),
+              base.tensor("betas_ma_np", dev, torch.int32))
+    if _on_card(x1):
+        out = compare_kernel_call(x1t, a1, x2t, a2, *tables, base.ma)
+        compare_op.launches += 1
+    else:
+        out = compare_plain(x1t, a1, x2t, a2, *tables, base.ma)
+    return out.reshape(lead).to(torch.bool)
+
+
+def reset_launches() -> dict:
+    """Zero every wrapper's launch count; returns the counts it cleared."""
+    counts = {}
+    for op in (mrc_op, modmul_op, compare_op):
+        counts[op.__name__] = op.launches
+        op.launches = 0
+    return counts
+
+
+mrc_op.launches = 0
+modmul_op.launches = 0
+compare_op.launches = 0
