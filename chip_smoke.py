@@ -3,31 +3,50 @@
 
     python3 chip_smoke.py
 
-Drives ``repro_torch`` (never the JAX package) through six phases and prints
-one JSON object per line:
+Drives ``repro_torch`` (never the JAX package) through these phases and
+prints one JSON object per line:
 
 1. card      — ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build     — builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
-               (``nvcc``, one process per source) with ptxas register and
-               shared-memory lines, and each kernel's static SASS opcode
-               counts (``cuobjdump -sass``);
+2. build     — builds the five CUDA kernels from
+               ``src/repro_torch/kernels/csrc`` (``nvcc``, one process per
+               source, all started together) with ptxas register and spill
+               lines, and each kernel's static SASS opcode counts
+               (``cuobjdump -sass``; for the codec kernels, the template
+               instances the main path runs);
 3. parity    — each kernel against its plain torch version on the card, bit
-               for bit, over n in {2, 3, 6, 17, 137}, bits in {8, 13, 15},
-               batch in {1, 7, 300, 65537}, int32 and int64 inputs, and
-               worst-case (m-1)**2 products;
-4. main path — the port's quickstart on the card, then Algorithm 1 (``>=``),
-               the ring product and the ``normalize`` MRC at the paper's
-               width (n = 137 15-bit moduli, 2**20 pairs) and on the
-               quickstart base (n = 8, 2**22 pairs); verdicts are checked
-               against the plain version on the card and against the host
-               big-int oracle on 4096 sampled columns, and the kernels'
-               launch counts against what the calls imply;
-5. timing    — CUDA-event medians of each kernel and its plain version at
+               for bit: mrc, modmul and compare over n in {2, 3, 6, 17, 137},
+               bits in {8, 13, 15}, batch in {1, 7, 300, 65537}, int32 and
+               int64 inputs, and worst-case (m-1)**2 products; the codec
+               encode and decode over the codecs make(world=1, 8, 512),
+               make(world=8, correct=True) and make(world=1, n=8, bits=6),
+               the same batches, the corners +-0, +-inf, NaN, +-clip and
+               its neighbours and values that clip, and for the decode the
+               extreme sums +-qmax * world;
+4. main path — slice 1: the port's quickstart on the card, then Algorithm 1
+               (``>=``), the ring product and the ``normalize`` MRC at the
+               paper's width (n = 137 15-bit moduli, 2**20 pairs) and on the
+               quickstart base (n = 8, 2**22 pairs), checked against the
+               plain version on the card, the host big-int oracle on 4096
+               sampled columns, and the launch counts the calls imply;
+5. codec     — slice 2, the exact gradient all-reduce as the reference's
+               train step composes it: three AdamW steps on the gemma3-1b
+               parameter tree (999,812,736 f32 elements, seeded step-keyed
+               gradients), each ``tree_pack_rns`` -> one int32
+               ``all_reduce`` on a one-rank NCCL group -> ``adamw_update``
+               with the bucketed decode at its boundary; the decoded
+               gradients are held against the f64 oracle and each kernel's
+               output against its plain version over the whole buffer, and
+               the launches per step must be one encode and one decode.
+               Then 8 emulated replicas of one leaf (their summed encodings
+               decode to the oracle sum / 8, and one compare launch gives
+               the sum's sign), and RRNS repair of injected faults on every
+               channel, with a two-channel fault refused;
+6. timing    — CUDA-event medians of each kernel and its plain version at
                the main-path shapes, beside the bound: the largest of bytes
                over 3.35 TB/s (H100 SXM data sheet) and, for each pipe
                (int32, conversion, fp32, load/store), the kernel's
                instructions on it over that pipe's peak rate;
-6. kernels   — one line listing every ported kernel.
+7. kernels   — one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero with no ``ok`` line; so does a host without a CUDA device, or
@@ -35,6 +54,7 @@ a directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import re
@@ -73,11 +93,44 @@ MUL_MOD = Counter({"int32": 7, "conversion": 1, "fp32": 1})
 # loads of w_i, m_i and 1/m_i and a store of w_i (shared) and one load of
 # the inverse (global, a warp-wide broadcast).
 MRC_STEP = SUB_MOD + MUL_MOD + Counter({"load/store": 5})
+# The gradient codec (csrc/codec_encode.cu, csrc/codec_decode.cu).
+# MULHI_MOD: t mod m by the multiply-high step (high product, t - q*m, one
+# compare and subtract).  EMBED: the signed embedding of one channel (the
+# negated residue: compare, subtract, select; the shift: add, compare,
+# subtract; the final select).
+MULHI_MOD = Counter({"int32": 4})
+EMBED = Counter({"int32": 7})
 ORACLE_COLUMNS = 4096
 SWEEP_NS, SWEEP_BITS = (2, 3, 6, 17, 137), (8, 13, 15)
 SWEEP_BATCHES = (1, 7, 300, 65537)
 PAPER_BATCH, SMALL_BATCH = 1 << 20, 1 << 22
 DEVICE = "cuda"
+
+# Slice 2, the gradient codec.  Its main path runs on the parameter tree of
+# gemma3-1b as the reference builds it (src/repro/configs/gemma3_1b.py,
+# ``repro.models.model.init_params``; shapes read with jax.eval_shape on the
+# reference): 10 f32 leaves, 999,812,736 elements.
+MODEL_TREE = {
+    "embed": (262144, 1152),
+    "final_norm": (1152,),
+    "layers/attn/wk": (26, 1152, 1, 256),
+    "layers/attn/wo": (26, 4, 256, 1152),
+    "layers/attn/wq": (26, 1152, 4, 256),
+    "layers/attn/wv": (26, 1152, 1, 256),
+    "layers/ln1": (26, 1152),
+    "layers/ln2": (26, 1152),
+    "layers/mlp/wi": (26, 1152, 2, 6912),
+    "layers/mlp/wo": (26, 6912, 1152),
+}
+MODEL_NAME = "gemma3_1b"
+CODEC_STEPS = 3
+CODEC_SWEEP = (dict(world=1), dict(world=8), dict(world=512),
+               dict(world=8, correct=True), dict(world=1, n=8, bits=6))
+REPLICAS = 8                       # the detect codec is make(world=8)
+REPLICA_LEAF = "layers/attn/wq"    # 30,670,848 elements
+CLIP_STRIDE = 1_000_003            # every such element is scaled past the clip
+CHUNK = 1 << 26                    # elements per plain-version comparison
+DIST_BACKEND = "nccl"
 
 
 def emit(obj) -> None:
@@ -95,8 +148,29 @@ def scaled(mix: Counter, k: int) -> Counter:
 
 def column_mix(name: str, n: int) -> Counter:
     """Instructions by pipe for one column (mrc, compare) or one element
-    (modmul) of a kernel, as its source in csrc/ issues them."""
+    (modmul, codec_encode, codec_decode) of a kernel, as its source in csrc/
+    issues them; n counts the channels (for the encode, those written)."""
     steps = n * (n - 1) // 2
+    if name == "codec_encode":
+        # g in; scale, NaN test and select, sign, |r| min 2**44, 2**-15
+        # scale, limb split (fp32); rint, floor and two float->int
+        # (conversion); the clip (int32); per channel MULHI_MOD, the
+        # Barrett step MUL_MOD, EMBED and the store
+        return (Counter({"load/store": 1, "fp32": 8, "conversion": 4,
+                         "int32": 6})
+                + scaled(MULHI_MOD + MUL_MOD + EMBED
+                         + Counter({"load/store": 1}), n))
+    if name == "codec_decode":
+        # per channel a load and the fold (MUL_MOD without its product);
+        # the MRC steps in registers; Horner (three multiply-adds, two
+        # shifts, three masks per step); the signed fold with borrows and
+        # three int->float (int32, as I2FP); Fast2Sum and the scale
+        # (fp32); the store
+        return (Counter({"load/store": 1, "fp32": 7, "int32": 20})
+                + scaled(MUL_MOD - Counter({"int32": 1})
+                         + Counter({"load/store": 1}), n)
+                + scaled(SUB_MOD + MUL_MOD, steps)
+                + scaled(Counter({"int32": 8}), n - 1))
     if name == "modmul":   # x, y, m in, out; 1/m from an int->float (I2FP)
         return MUL_MOD + Counter({"load/store": 4, "int32": 1})
     mrc = scaled(MRC_STEP, steps) + Counter({"load/store": n - 1})  # w_j
@@ -115,26 +189,433 @@ def column_mix(name: str, n: int) -> Counter:
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
 
 
+KERNEL_NAMES = ("mrc_kernel", "modmul_kernel", "compare_kernel",
+                "codec_encode_kernel", "codec_decode_kernel")
+# The codec kernels are templates on their channel count; the build and
+# SASS lines show the instance the main path runs (4 channels written by
+# the encode, 3 base channels read by the decode), "_Z...ILi4E..." mangled.
+MAIN_INSTANCE = {"codec_encode_kernel": 4, "codec_decode_kernel": 3}
+TEMPLATE_ARG = re.compile(r"ILi(\d+)E")
+
+
+def kernel_of(symbol: str):
+    """(kernel name, template argument or None) of a mangled symbol."""
+    name = next((k for k in KERNEL_NAMES if k in symbol), None)
+    arg = TEMPLATE_ARG.search(symbol)
+    return name, int(arg.group(1)) if arg else None
+
+
 def sass_opcodes(library: str) -> dict:
-    """Static SASS opcode counts of each kernel in the built library."""
+    """Static SASS opcode counts of each kernel in the built library (the
+    main path's instance of a templated one)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", library], check=True,
                           capture_output=True, text=True).stdout
     out = {}
     for block in sass.split("Function : ")[1:]:
-        name = next((k for k in ("mrc_kernel", "modmul_kernel", "compare_kernel")
-                     if k in block.splitlines()[0]), None)
-        if name is None:
+        name, arg = kernel_of(block.splitlines()[0])
+        if name is None or arg != MAIN_INSTANCE.get(name):
             continue
         ops = re.findall(SASS_OPCODE, block)
         out[name] = dict(Counter(ops).most_common())
-    require(len(out) == 3, f"cuobjdump found kernels {sorted(out)}")
+    require(len(out) == len(KERNEL_NAMES), f"cuobjdump found kernels {sorted(out)}")
     return out
+
+
+def ptxas_summary(ptxas: dict) -> dict:
+    """The build's ptxas lines per source, for a templated kernel only those
+    of the main path's instance, with the most registers and spill bytes
+    over all instances."""
+    out = {}
+    for src, lines in ptxas.items():
+        keep, regs, spills, show = [], [], [], True
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                name, arg = kernel_of(ln)
+                show = arg is None or arg == MAIN_INSTANCE.get(name)
+            regs += [int(r) for r in re.findall(r"Used (\d+) registers", ln)]
+            spills += [int(b) for b in re.findall(r"(\d+) bytes spill", ln)]
+            if show:
+                keep.append(ln)
+        out[src] = {"lines": keep, "max_registers": max(regs, default=None),
+                    "spill_bytes": sum(spills)}
+    return out
+
+
+def nest(flat: dict) -> dict:
+    """{"a/b": v} -> {"a": {"b": v}}."""
+    out = {}
+    for name, v in flat.items():
+        *path, leaf = name.split("/")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = v
+    return out
+
+
+def leaf_order() -> list:
+    """MODEL_TREE's leaf names in the wire buffer's order (the reference's
+    flatten order: sorted keys at every level)."""
+    from repro_torch.dist._tree import flatten
+
+    return flatten(nest({name: name for name in MODEL_TREE}))[0]
+
+
+def seeded_grad(shape, seed: int, dev):
+    """N(0, 0.01**2) gradients from ``seed``, with every CLIP_STRIDE-th
+    element scaled far past any codec's clip."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(shape, generator=gen, device=dev).mul_(1e-2)
+    g.view(-1)[::CLIP_STRIDE].mul_(1e11)
+    return g
+
+
+def grad_seed(step: int, leaf: int) -> int:
+    return 1000 * step + leaf
+
+
+def quantized(codec, g):
+    """The f64 oracle's integers: clip(round(g * 2**frac_bits), +-qmax)."""
+    import torch
+
+    r = torch.round(g.to(torch.float64) * (1 << codec.frac_bits))
+    return torch.clamp(r, -codec.qmax, codec.qmax).to(torch.int64)
+
+
+def oracle(codec, q, denom: float):
+    """f32(q * 2**-frac_bits) / denom, the decode's value of integers q."""
+    import torch
+
+    return (q.to(torch.float64) * 2.0 ** -codec.frac_bits).to(
+        torch.float32) / denom
+
+
+def bits_equal(a, b) -> bool:
+    """Bitwise equality of two f32 tensors (-0.0 and NaN included)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def launch_counts(ops) -> dict:
+    return {"mrc": ops.mrc_op.launches, "modmul": ops.modmul_op.launches,
+            "compare": ops.compare_op.launches,
+            "codec_encode": ops.codec_encode_op.launches,
+            "codec_decode": ops.codec_decode_op.launches}
+
+
+def implied(**nonzero) -> dict:
+    """Launch counts with every kernel not named at 0."""
+    return {k: nonzero.get(k, 0) for k in ("mrc", "modmul", "compare",
+                                           "codec_encode", "codec_decode")}
+
+
+def codec_tables(codec):
+    """(encode tables, encode keywords, decode tables, decode keywords)."""
+    from repro_torch.kernels import ops
+
+    enc = ops._encode_tables(codec.base, codec.redundant)
+    enc_kw = dict(scale=float(1 << codec.frac_bits), qh=codec.qmax >> 15,
+                  ql=codec.qmax & 0x7FFF)
+    dec = ops._decode_tables(codec.base)
+    return enc, enc_kw, dec, dict(inv_scale=2.0 ** -codec.frac_bits)
+
+
+def codec_parity(dev, max_err) -> int:
+    """Each codec kernel against its plain version over the sweep, bit for
+    bit; the wrappers and the f64 path agree with them too."""
+    import torch
+
+    from repro_torch.dist.grad_codec import GradCodec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.codec_decode import (codec_decode_kernel_call,
+                                                  codec_decode_plain)
+    from repro_torch.kernels.codec_encode import (codec_encode_kernel_call,
+                                                  codec_encode_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def hold_int(got, want, where):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err["codec_encode"] = max(max_err["codec_encode"], err)
+        require(got.shape == want.shape and err == 0,
+                f"codec_encode disagrees with its plain version at {where}")
+
+    def hold_f32(got, want, where):
+        err = float((got - want).abs().max())
+        max_err["codec_decode"] = max(max_err["codec_decode"], err)
+        require(bits_equal(got, want),
+                f"codec_decode disagrees with its plain version at {where}")
+
+    cases = 0
+    for kw in CODEC_SWEEP:
+        codec = GradCodec.make(**kw)
+        enc, enc_kw, dec, dec_kw = codec_tables(codec)
+        clip = torch.tensor(codec.clip, dtype=torch.float32)
+        inf, nan = float("inf"), float("nan")
+        up = torch.nextafter(clip, torch.tensor(inf))
+        down = torch.nextafter(clip, torch.tensor(0.0))
+        corners = torch.cat([
+            torch.tensor([0.0, -0.0, inf, -inf, nan]), -torch.tensor([nan]),
+            torch.stack([clip, -clip, up, -up, down, -down, 2 * clip,
+                         -2 * clip]),
+            torch.tensor([1e30, -1e30, 2.0 ** -17, -(2.0 ** -17),
+                          3 * 2.0 ** -17, 1e-40])]).to(dev)
+        extremes = (torch.stack([2 * clip, -2 * clip]).to(dev),
+                    float(codec.qmax * codec.world) * 2.0 ** -codec.frac_bits)
+        for batch in SWEEP_BATCHES:
+            where = dict(kw, batch=batch)
+            big = torch.rand(batch, generator=gen, device=dev) < 0.25
+            scale = torch.where(big, 4 * codec.clip, 1e3)
+            g = torch.randn(batch, generator=gen, device=dev) * scale
+            k = min(batch, len(corners))
+            g[:k] = corners[:k]
+            want = codec_encode_plain(g, *enc, **enc_kw)
+            hold_int(codec_encode_kernel_call(g, *enc, **enc_kw), want, where)
+            hold_int(ops.codec_encode_op(codec, g), want.T, where)
+            hold_int(codec.encode(g), want.T, where)           # f64 path
+            # per-channel sums of up to 4 replicas, then +-qmax * world
+            s = want.clone()
+            for _ in range(min(codec.world, 4) - 1):
+                s += codec_encode_plain(
+                    torch.randn(batch, generator=gen, device=dev) * scale,
+                    *enc, **enc_kw)
+            ext = codec_encode_plain(extremes[0], *enc, **enc_kw) * codec.world
+            s = torch.cat([s, ext], dim=1).contiguous()
+            want_d = codec_decode_plain(s, *dec, **dec_kw)
+            got_d = codec_decode_kernel_call(s, *dec, **dec_kw)
+            hold_f32(got_d, want_d, where)
+            hold_f32(ops.codec_decode_op(codec, s, channel_major=True),
+                     want_d, where)
+            hold_f32(codec.decode(codec.fold(s.T)), want_d, where)
+            ext_want = torch.tensor([extremes[1], -extremes[1]],
+                                    dtype=torch.float32, device=dev)
+            require(bits_equal(got_d[-2:], ext_want),
+                    f"codec_decode of +-qmax * world at {where}")
+            cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def codec_main_path(dev, group, max_err) -> dict:
+    """Slice 2's main path: CODEC_STEPS AdamW steps on MODEL_TREE, each
+    composed as the reference's train step composes it, with the checks of
+    each step after its launch counts are read."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.grad_codec import (GradCodec, tree_decode,
+                                             tree_pack_rns)
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+
+    codec = GradCodec.make(world=REPLICAS)   # examples/rns_gradient_training.py
+    order = leaf_order()
+    pgen = torch.Generator(device=dev).manual_seed(0)
+    params = nest({name: torch.randn(MODEL_TREE[name], generator=pgen,
+                                     device=dev).mul_(0.02)
+                   for name in order})
+    opt = adamw_init(params)
+    cfg = AdamWConfig()
+    denom = float(dist.get_world_size(group))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    stages = ("gradients", "tree_pack_rns", "all_reduce", "adamw_update")
+    for step in range(1, CODEC_STEPS + 1):
+        before = launch_counts(ops)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t0 = time.perf_counter()
+        events[0].record()
+        grads = nest({name: seeded_grad(MODEL_TREE[name], grad_seed(step, i),
+                                        dev)
+                      for i, name in enumerate(order)})
+        events[1].record()
+        wire, meta = tree_pack_rns(codec, grads)
+        del grads
+        events[2].record()
+        # the train step's one gradient collective: int32 SUM per channel
+        dist.all_reduce(wire.residues, op=dist.ReduceOp.SUM, group=group)
+        events[3].record()
+        seen = {}
+
+        def decode(summed):
+            seen["grads"] = tree_decode(codec, summed, meta, denom=denom)
+            return seen["grads"]
+
+        params, opt, gnorm = adamw_update(cfg, params, wire, opt,
+                                          grad_decode=decode)
+        events[4].record()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stages_ms = {name: events[i].elapsed_time(events[i + 1])
+                     for i, name in enumerate(stages)}
+        now = launch_counts(ops)
+        got = {k: now[k] - before[k] for k in now}
+        require(got == implied(codec_encode=1, codec_decode=1),
+                f"codec step {step} launches {got}")
+        require(bool(torch.isfinite(gnorm)), f"codec step {step}: gnorm")
+        check_codec_step(codec, wire, seen.pop("grads"), order, step, denom,
+                         dev, max_err)
+        del wire
+        emit({"phase": "codec", "step": step, "model": MODEL_NAME,
+              "elements": wire_elements(), "seconds": seconds,
+              "stages_ms": stages_ms, "launches": got, "gnorm": float(gnorm),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+    launches = launch_counts(ops)
+    for name, p in zip(order, _leaves(params)):
+        require(bool(torch.isfinite(p).all()), f"codec: parameter {name}")
+    require(int(opt["step"]) == CODEC_STEPS, "codec: optimizer step count")
+    return {"launches": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+def wire_elements() -> int:
+    import math
+
+    return sum(math.prod(s) for s in MODEL_TREE.values())
+
+
+def _leaves(tree):
+    from repro_torch.dist._tree import flatten
+
+    return flatten(tree)[0]
+
+
+def check_codec_step(codec, wire, decoded, order, step, denom, dev,
+                     max_err) -> None:
+    """Over the whole buffer, in chunks: the wire (the one-rank all-reduce
+    leaves it as encoded) equals the plain encode of the regenerated
+    gradients, the decoded gradients equal the plain decode of the wire and
+    the f64 oracle, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.codec_decode import codec_decode_plain
+    from repro_torch.kernels.codec_encode import codec_encode_plain
+
+    enc, enc_kw, dec, dec_kw = codec_tables(codec)
+    off = 0
+    for i, (name, leaf) in enumerate(zip(order, _leaves(decoded))):
+        g = seeded_grad(MODEL_TREE[name], grad_seed(step, i), dev).view(-1)
+        got = leaf.reshape(-1)
+        for a in range(0, g.numel(), CHUNK):
+            b = min(a + CHUNK, g.numel())
+            cols = wire.residues[:, off + a : off + b]
+            err = int((cols - codec_encode_plain(g[a:b], *enc, **enc_kw))
+                      .abs().max())
+            max_err["codec_encode"] = max(max_err["codec_encode"], err)
+            require(err == 0, f"codec step {step}: the encode of {name} "
+                    "differs from its plain version")
+            want = codec_decode_plain(cols, *dec, **dec_kw) / denom
+            max_err["codec_decode"] = max(max_err["codec_decode"],
+                                          float((got[a:b] - want).abs().max()))
+            require(bits_equal(got[a:b], want), f"codec step {step}: the "
+                    f"decode of {name} differs from its plain version")
+            require(bits_equal(got[a:b], oracle(codec, quantized(codec, g[a:b]),
+                                                denom)),
+                    f"codec step {step}: {name} differs from the f64 oracle")
+        off += g.numel()
+    require(off == wire.residues.shape[1], "codec: wire width")
+
+
+def codec_replicas(dev) -> dict:
+    """REPLICAS emulated replicas of one leaf: their summed encodings decode
+    to the oracle sum / REPLICAS, and the sum's sign (one Alg.-1 compare
+    launch after ``normalize``) matches the oracle's."""
+    import torch
+
+    from repro_torch.dist.grad_codec import GradCodec
+    from repro_torch.kernels import ops
+
+    codec = GradCodec.make(world=REPLICAS)
+    shape = MODEL_TREE[REPLICA_LEAF]
+    ops.reset_launches()
+    summed, v = None, None
+    for r in range(REPLICAS):
+        g = seeded_grad(shape, 50_000 + r, dev).view(-1)
+        enc = codec.encode_packed(g, channel_major=True)
+        summed = enc if summed is None else summed.add_(enc)
+        q = quantized(codec, g)
+        v = q if v is None else v.add_(q)
+    arr = codec.as_array(summed, channel_major=True)
+    got = codec.decode_summed(arr) / float(REPLICAS)
+    require(bits_equal(got, oracle(codec, v, float(REPLICAS))),
+            "codec replicas: the decoded sum differs from the f64 oracle")
+    neg = codec.is_negative(codec.normalize(codec.fold(arr)))
+    require(torch.equal(neg, v < 0), "codec replicas: the sign of the sum "
+            "differs from the oracle's")
+    torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    require(launches == implied(codec_encode=REPLICAS, codec_decode=1,
+                                compare=1),
+            f"codec replicas launches {launches}")
+    return {"leaf": REPLICA_LEAF, "elements": int(v.numel()),
+            "replicas": REPLICAS, "launches": launches,
+            "negative_share": float(neg.float().mean())}
+
+
+def codec_rrns(dev) -> dict:
+    """A locate-and-correct codec on one leaf: single-channel faults on every
+    channel are located and repaired bitwise; a two-channel fault is
+    refused (-2) and left as it was."""
+    import torch
+
+    from repro_torch.dist.fault import repair_packed
+    from repro_torch.dist.grad_codec import GradCodec
+    from repro_torch.kernels import ops
+
+    codec = GradCodec.make(world=REPLICAS, correct=True)
+    g = seeded_grad(MODEL_TREE[REPLICA_LEAF], 60_000, dev).view(-1)
+    ops.reset_launches()
+    clean = codec.encode_array(g, channel_major=True).residues
+    chans = tuple(codec.base.moduli) + codec.redundant
+    B = clean.shape[1]
+    bad, picks = clean.clone(), {}
+    for c, mc in enumerate(chans):
+        idx = torch.arange(4, device=dev) * (B // 4) + c * (B // 64) + 17
+        bad[c, idx] = (bad[c, idx] + 1 + c) % mc
+        picks[c] = idx
+    fault = codec.locate_fault(codec.as_array(bad, channel_major=True))
+    for c, idx in picks.items():
+        require(bool((fault[idx] == c).all()),
+                f"codec rrns: a fault on channel {c} was not located")
+    n_faults = 4 * len(chans)
+    require(int((fault >= 0).sum()) == n_faults and not (fault == -2).any(),
+            "codec rrns: locate reports other elements")
+    fixed, report = repair_packed(codec, codec.as_array(bad,
+                                                        channel_major=True))
+    require(report == {"repaired": n_faults, "unrecoverable": 0},
+            f"codec rrns: repair report {report}")
+    require(torch.equal(fixed.residues, clean),
+            "codec rrns: the repaired buffer differs from the clean one")
+    two, e = clean.clone(), B // 3
+    two[0, e] = (two[0, e] + 1) % chans[0]
+    two[3, e] = (two[3, e] + 2) % chans[3]
+    kept, refused = repair_packed(codec, codec.as_array(two,
+                                                        channel_major=True))
+    require(refused == {"repaired": 0, "unrecoverable": 1},
+            f"codec rrns: two-channel fault report {refused}")
+    require(torch.equal(kept.residues, two),
+            "codec rrns: a refused element was changed")
+    require(int(codec.locate_fault(codec.as_array(two, channel_major=True))[e])
+            == -2, "codec rrns: a two-channel fault was not refused")
+    torch.cuda.synchronize()
+    launches = launch_counts(ops)
+    require(launches == implied(codec_encode=1),
+            f"codec rrns launches {launches}")
+    return {"leaf": REPLICA_LEAF, "channels": len(chans), "faults": n_faults,
+            "report": report, "two_channel_report": refused,
+            "launches": launches}
 
 
 def main() -> int:
     import torch
+    import torch.distributed as dist
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -146,6 +627,11 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.modmul import modmul_kernel_call, modmul_plain
     from repro_torch.kernels.mrc import mrc_kernel_call, mrc_plain
+    from repro_torch.dist.grad_codec import GradCodec
+    from repro_torch.kernels.codec_decode import (codec_decode_kernel_call,
+                                                  codec_decode_plain)
+    from repro_torch.kernels.codec_encode import (codec_encode_kernel_call,
+                                                  codec_encode_plain)
     from repro_torch.kernels.ref import ref_compare, ref_modmul, ref_mrc
     from repro_torch.kernels.rns_compare import compare_kernel_call, compare_plain
 
@@ -166,7 +652,7 @@ def main() -> int:
     info = build.build()
     build.load()
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"],
-          "library": os.path.relpath(info["path"], ROOT), "ptxas": info["ptxas"],
+          "library": os.path.relpath(info["path"], ROOT), "ptxas": ptxas_summary(info["ptxas"]),
           "sass_opcodes": sass_opcodes(info["path"])})
 
     # -------------------------------------------------------- 3. parity
@@ -181,7 +667,8 @@ def main() -> int:
     def tiles(x):
         return x.reshape(-1, x.shape[-1]).T.to(torch.int32).contiguous()
 
-    max_err = {"mrc": 0, "modmul": 0, "compare": 0}
+    max_err = {"mrc": 0, "modmul": 0, "compare": 0, "codec_encode": 0,
+               "codec_decode": 0.0}
 
     def hold(name, got, want, where):
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -239,7 +726,14 @@ def main() -> int:
                     cases += 1
     torch.cuda.synchronize()
     emit({"phase": "parity", "cases": cases, "skipped": skipped,
-          "max_abs_err": max_err, "exact": True})
+          "max_abs_err": {k: max_err[k] for k in ("mrc", "modmul", "compare")},
+          "exact": True})
+    cases = codec_parity(dev, max_err)
+    emit({"phase": "parity", "kernels": "codec", "cases": cases,
+          "codecs": list(CODEC_SWEEP), "batches": list(SWEEP_BATCHES),
+          "max_abs_err": {k: max_err[k] for k in ("codec_encode",
+                                                  "codec_decode")},
+          "exact": True})
 
     # ----------------------------------------------------- 4. main path
     def counts():
@@ -319,7 +813,23 @@ def main() -> int:
     launches = counts()
     emit({"phase": "main", "step": "total", "launches": launches})
 
-    # -------------------------------------------------------- 5. timing
+    # ------------------------------------ 5. codec: slice 2's main path
+    torch.cuda.set_device(dev)
+    dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        codec_run = codec_main_path(dev, dist.group.WORLD, max_err)
+    finally:
+        dist.destroy_process_group()
+    launches.update({k: codec_run["launches"][k]
+                     for k in ("codec_encode", "codec_decode")})
+    emit({"phase": "codec", "step": "total", "model": MODEL_NAME,
+          **codec_run})
+    emit({"phase": "codec", "step": "replicas", **codec_replicas(dev)})
+    emit({"phase": "codec", "step": "rrns", **codec_rrns(dev)})
+
+    # -------------------------------------------------------- 6. timing
     def median_ms(fn, runs=20, warmup=3):
         for _ in range(warmup):
             fn()
@@ -388,16 +898,64 @@ def main() -> int:
             emit(row)
             timings[(name, label)] = row
 
-    # ------------------------------------------------------- 6. kernels
+    # the codec kernels on the whole gemma3-1b gradient buffer; the plain
+    # versions walk it in CHUNK-element pieces, as the main path's checks do
+    codec = GradCodec.make(world=REPLICAS)
+    enc, enc_kw, dec, dec_kw = codec_tables(codec)
+    flat = torch.cat([seeded_grad(MODEL_TREE[name], grad_seed(1, i), dev)
+                      .view(-1) for i, name in enumerate(leaf_order())])
+    wire = codec_encode_kernel_call(flat, *enc, **enc_kw)
+    B, nch, n = flat.numel(), wire.shape[0], codec.base.n
+
+    def plain_encode():
+        for a in range(0, B, CHUNK):
+            codec_encode_plain(flat[a : a + CHUNK], *enc, **enc_kw)
+
+    def plain_decode():
+        for a in range(0, B, CHUNK):
+            codec_decode_plain(wire[:, a : a + CHUNK], *dec, **dec_kw)
+
+    # name: (kernel, plain version, bytes moved, units, channels)
+    codec_work = {
+        "codec_encode": (lambda: codec_encode_kernel_call(flat, *enc, **enc_kw),
+                         plain_encode, 4 * B + 4 * nch * B, B, nch),
+        "codec_decode": (lambda: codec_decode_kernel_call(wire, *dec, **dec_kw),
+                         plain_decode, 4 * n * B + 4 * B, B, n),
+    }
+    for name, (kern, plain, nbytes, units, chans) in codec_work.items():
+        ms = median_ms(kern)
+        plain_ms = median_ms(plain, runs=3, warmup=1)
+        mix = column_mix(name, chans)
+        bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, units)
+        row = {"phase": "timing", "kernel": name, "shape": MODEL_NAME,
+               "n": chans, "batch": B, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_pipe": pipe, "bound_share": bound_ms / ms,
+               "pipe_ms": pipe_ms, "bytes": nbytes,
+               "instructions": {p: units * c for p, c in mix.items()},
+               "sms": sms, "clock_max_mhz": clock_mhz,
+               "launches_per_call": 1, "card": card}
+        emit(row)
+        timings[(name, MODEL_NAME)] = row
+    del flat, wire
+
+    # ------------------------------------------------------- 7. kernels
     replaces = {"mrc": "src/repro/kernels/mrc.py:33",
                 "modmul": "src/repro/kernels/modmul.py:26",
-                "compare": "src/repro/kernels/rns_compare.py:44"}
+                "compare": "src/repro/kernels/rns_compare.py:44",
+                "codec_encode": "src/repro/kernels/codec_encode.py:83",
+                "codec_decode": "src/repro/kernels/codec_decode.py:93"}
     sources = {"mrc": "src/repro_torch/kernels/csrc/mrc.cu",
                "modmul": "src/repro_torch/kernels/csrc/modmul.cu",
-               "compare": "src/repro_torch/kernels/csrc/rns_compare.cu"}
+               "compare": "src/repro_torch/kernels/csrc/rns_compare.cu",
+               "codec_encode": "src/repro_torch/kernels/csrc/codec_encode.cu",
+               "codec_decode": "src/repro_torch/kernels/csrc/codec_decode.cu"}
+    shape_of = {"mrc": "paper_n137", "modmul": "paper_n137",
+                "compare": "paper_n137", "codec_encode": MODEL_NAME,
+                "codec_decode": MODEL_NAME}
     rows = []
-    for name in ("mrc", "modmul", "compare"):
-        t = timings[(name, "paper_n137")]
+    for name in replaces:
+        t = timings[(name, shape_of[name])]
         rows.append({"name": name, "route": "cuda", "source": sources[name],
                      "replaces": replaces[name], "launches": launches[name],
                      "max_abs_err": max_err[name], "ms": t["ms"],

@@ -27,18 +27,23 @@ __all__ = ["build", "load", "check", "pointers", "stream"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-_SOURCES = ("mrc.cu", "modmul.cu", "rns_compare.cu")
+_SOURCES = ("mrc.cu", "modmul.cu", "rns_compare.cu", "codec_encode.cu",
+            "codec_decode.cu")
 # sm_90a (Hopper); IEEE division and no FMA contraction of the Barrett
 # product are the defaults — never add --use_fast_math (see common.cuh).
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # name: (x..., out, tables..., ints..., B, stream)
     "rns_mrc": [_P, _P, _P, _P, _I, _L, _P],
     "rns_modmul": [_P, _P, _P, _P, _I, _L, _P],
     "rns_compare": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P],
+    # g, out, host m / pow15 / off, nch, scale, qh, ql, B, stream
+    "rns_codec_encode": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _L, _P],
+    # x, out, host m / inv / half, n, inv_scale, B, stream
+    "rns_codec_decode": [_P, _P, _P, _P, _P, _I, _F, _L, _P],
 }
 
 
@@ -117,16 +122,16 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def pointers(what: str, *tensors) -> list[int]:
-    """Device pointers of a kernel's int32 operands, after checking that
-    they are contiguous int32 tensors on one CUDA device."""
+def pointers(what: str, *tensors, dtype=torch.int32) -> list[int]:
+    """Device pointers of a kernel's operands, after checking that they are
+    contiguous tensors of ``dtype`` on one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{what}: operands must share one CUDA device, "
                              f"got {t.device} and {dev}")
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{what}: operands must be contiguous int32, "
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous {dtype}, "
                              f"got {t.dtype} (contiguous={t.is_contiguous()})")
     return [t.data_ptr() for t in tensors]
 

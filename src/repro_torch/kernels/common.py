@@ -1,9 +1,10 @@
 """Plain torch versions of the kernels' shared primitives, on (n, B) tiles.
 
 Each function repeats, op for op, what its ``__device__`` counterpart in
-``csrc/common.cuh`` computes: the same f32 Barrett reduction and the same
-triangle.  The kernels' plain versions (``mrc_plain``, ``modmul_plain``,
-``compare_plain``) are built from these; the CPU tests hold them against the
+``csrc/common.cuh`` computes: the same f32 Barrett reduction, the same
+multiply-high reduction and the same triangle.  The kernels' plain versions
+(``mrc_plain``, ``modmul_plain``, ``compare_plain``, ``codec_encode_plain``,
+``codec_decode_plain``) are built from these; the CPU tests hold them against the
 reference's Pallas kernels and ``chip_smoke.py`` holds the CUDA kernels
 against them on the card.
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["barrett_mod", "recip", "mrc_rows", "to_ma_rows"]
+__all__ = ["barrett_mod", "mod_mulhi", "recip", "mrc_rows", "to_ma_rows"]
 
 
 def recip(m):
@@ -29,6 +30,17 @@ def barrett_mod(t, m, r):
     out = t - q * m
     out = torch.where(out < 0, out + m, out)
     return torch.where(out >= m, out - m, out)
+
+
+def mod_mulhi(t, m):
+    """Exact t mod m for int32 0 <= t < 2**31 and int32 moduli m >= 2, as
+    ``csrc/common.cuh::mod_mulhi`` computes it: the quotient is the high
+    word of t * floor(2**32 / m), floor(t / m) or one less, and one
+    correction makes the remainder exact."""
+    mu = (1 << 32) // m.to(torch.int64)
+    t64 = t.to(torch.int64)
+    out = t64 - ((t64 * mu) >> 32) * m
+    return torch.where(out >= m, out - m, out).to(torch.int32)
 
 
 def mrc_rows(w, inv, m):

@@ -1,5 +1,6 @@
 // Shared device primitives for the RNS kernels (mrc.cu, modmul.cu,
-// rns_compare.cu); the counterpart of src/repro/kernels/common.py.
+// rns_compare.cu, codec_encode.cu, codec_decode.cu); the counterpart of
+// src/repro/kernels/common.py.
 //
 // Layout: every kernel works on channel-major (n, B) int32 buffers, one
 // column (one RNS number) per thread, the batch across threads, so that a
@@ -36,6 +37,15 @@ __device__ __forceinline__ int barrett_mod(int t, int m, float recip) {
   int q = __float2int_rd(__fmul_rn(__int2float_rn(t), recip));
   int r = t - q * m;
   r += (r < 0) ? m : 0;
+  r -= (r >= m) ? m : 0;
+  return r;
+}
+
+// Exact t mod m for any 0 <= t < 2**32 and 2 <= m, with mu = floor(2**32 / m):
+// the high word of t * mu is floor(t / m) or one less, so one correction
+// makes the remainder exact.  Used where t exceeds barrett_mod's range.
+__device__ __forceinline__ int mod_mulhi(unsigned t, int m, unsigned mu) {
+  int r = (int)(t - __umulhi(t, mu) * (unsigned)m);
   r -= (r >= m) ? m : 0;
   return r;
 }

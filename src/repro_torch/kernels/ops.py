@@ -1,5 +1,6 @@
 """Public wrappers for the RNS kernels: ``mrc_op``, ``modmul_op``,
-``compare_op``.
+``compare_op``, and the gradient codec's ``codec_encode_op`` and
+``codec_decode_op``.
 
 They present the same channels-last ``(..., n)`` API as ``repro_torch.core``
 and handle:
@@ -11,7 +12,8 @@ and handle:
 * the device: a CUDA tensor launches the kernel — there is no fallback — and
   a CPU tensor takes the kernel's plain torch version;
 * constraints: the kernels need 15-bit (int32-lane) bases; wider bases
-  raise here (``repro_torch.core`` serves them);
+  raise here (``repro_torch.core`` serves them); the codec kernels also
+  need M < 2**45 (three 15-bit limbs), as the reference's do;
 * ``RnsArray`` operands in place of the ``base, x[, xa]`` argument group.
   ``modmul_op`` on such operands reduces ALL channels, redundant rows
   included, each in its own modulus, and returns an ``RnsArray``.
@@ -20,15 +22,21 @@ Each wrapper counts its kernel launches in ``<op>.launches``.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..core.array import RnsArray
 from ..core.base import RNSBase
+from .codec_decode import codec_decode_kernel_call, codec_decode_plain
+from .codec_encode import codec_encode_kernel_call, codec_encode_plain
 from .modmul import modmul_kernel_call, modmul_plain
 from .mrc import mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
 
-__all__ = ["mrc_op", "modmul_op", "compare_op", "reset_launches"]
+__all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
+           "codec_decode_op", "reset_launches"]
 
 
 def _on_card(t) -> bool:
@@ -144,10 +152,84 @@ def compare_op(base, x1=None, xa1=None, x2=None, xa2=None):
     return out.reshape(lead).to(torch.bool)
 
 
+# ------------------------------------------------------ gradient codec
+def _check_codec(codec, what: str):
+    if codec.base.M >= 1 << 45:
+        raise ValueError(f"codec {what} kernel requires M < 2**45 (3 limbs)")
+    _check_bits(codec.base)
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_tables(base: RNSBase, redundant: tuple[int, ...]):
+    """Host tables of the encode: moduli (base, then redundant), 2**15 mod
+    each, and the negative-embedding shift (0 on base rows, M mod m_r)."""
+    m = tuple(base.moduli) + tuple(redundant)
+    pow15 = tuple((1 << 15) % mi for mi in m)
+    off = (0,) * base.n + tuple(base.M % r for r in redundant)
+    return m, pow15, off
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_tables(base: RNSBase):
+    """Host tables of the decode: moduli, the MRC inverse table, and the
+    15-bit limbs of T = ceil(M/2) and of M."""
+    T, M = (base.M + 1) // 2, base.M
+    half = tuple(v >> s & 0x7FFF for v in (T, M) for s in (0, 15, 30))
+    return tuple(base.moduli), np.asarray(base.inv_tri_np, np.int64), half
+
+
+def codec_encode_op(codec, g, *, channel_major: bool = False):
+    """Gradient-codec encode: f32 tensor (...,) -> int32 residues
+    (..., nch), bitwise equal to ``GradCodec.encode``; nch counts the base
+    channels and the codec's redundant ones (m_a, and m_b on a
+    locate-and-correct codec).
+
+    ``channel_major=True`` returns the kernels' (nch, B) layout of the
+    flattened input, the wire format of the bucketed transport.
+    """
+    _check_codec(codec, "encode")
+    m, pow15, off = _encode_tables(codec.base, codec.redundant)
+    row = g.reshape(-1).to(torch.float32).contiguous()
+    kw = dict(scale=float(1 << codec.frac_bits), qh=codec.qmax >> 15,
+              ql=codec.qmax & 0x7FFF)
+    if _on_card(g):
+        out = codec_encode_kernel_call(row, m, pow15, off, **kw)
+        codec_encode_op.launches += int(row.numel() > 0)
+    else:
+        out = codec_encode_plain(row, m, pow15, off, **kw)
+    if channel_major:
+        return out
+    return out.T.reshape(*g.shape, len(m))
+
+
+def codec_decode_op(codec, summed, *, channel_major: bool = False):
+    """Gradient-codec decode: per-channel sums (..., nch) -> f32 values
+    (...,), the decoded value times 2**-frac_bits (the caller divides by
+    the replica count).  Only the base channels are read.
+
+    ``channel_major=True`` takes the kernels' (nch, B) layout directly and
+    returns (B,) — no transpose on the bucketed transport's path.
+    """
+    _check_codec(codec, "decode")
+    m, inv, half = _decode_tables(codec.base)
+    if channel_major:
+        x, lead = summed.to(torch.int32).contiguous(), None
+    else:
+        x, lead = _tiles(summed, summed.shape[-1])
+    inv_scale = 2.0 ** -codec.frac_bits
+    if _on_card(summed):
+        out = codec_decode_kernel_call(x, m, inv, half, inv_scale=inv_scale)
+        codec_decode_op.launches += int(x.shape[1] > 0)
+    else:
+        out = codec_decode_plain(x, m, inv, half, inv_scale=inv_scale)
+    return out if channel_major else out.reshape(lead)
+
+
 def reset_launches() -> dict:
     """Zero every wrapper's launch count; returns the counts it cleared."""
     counts = {}
-    for op in (mrc_op, modmul_op, compare_op):
+    for op in (mrc_op, modmul_op, compare_op, codec_encode_op,
+               codec_decode_op):
         counts[op.__name__] = op.launches
         op.launches = 0
     return counts
@@ -156,3 +238,5 @@ def reset_launches() -> dict:
 mrc_op.launches = 0
 modmul_op.launches = 0
 compare_op.launches = 0
+codec_encode_op.launches = 0
+codec_decode_op.launches = 0
