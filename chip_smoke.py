@@ -7,12 +7,12 @@ Drives ``repro_torch`` (never the JAX package) through these phases and
 prints one JSON object per line:
 
 1. card      — ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build     — builds the five CUDA kernels from
+2. build     — builds the seven CUDA kernels from the six sources in
                ``src/repro_torch/kernels/csrc`` (``nvcc``, one process per
                source, all started together) with ptxas register and spill
                lines, and each kernel's static SASS opcode counts
-               (``cuobjdump -sass``; for the codec kernels, the template
-               instances the main path runs);
+               (``cuobjdump -sass``; for the templated codec and Montgomery
+               kernels, the instances the main paths run);
 3. parity    — each kernel against its plain torch version on the card, bit
                for bit: mrc, modmul and compare over n in {2, 3, 6, 17, 137},
                bits in {8, 13, 15}, batch in {1, 7, 300, 65537}, int32 and
@@ -41,12 +41,29 @@ prints one JSON object per line:
                decode to the oracle sum / 8, and one compare launch gives
                the sum's sign), and RRNS repair of injected faults on every
                channel, with a two-channel fault refused;
-6. timing    — CUDA-event medians of each kernel and its plain version at
+6. crypto    — slice 3, the RNS crypto lane at RSA-2048 width.  Parity:
+               the Montgomery product and ladder-bit kernels against their
+               plain versions, bit for bit on every channel, over n_limbs in
+               {2, 3, 8, 17, 64, 138} (BASE_MA, and RRNS at 8 and 138),
+               batches {1, 7, 300, 4099}, a different N in each column (one
+               just below n_max), the operands 0, 1, N-1, N, 2N-1, and bit
+               rows all 0, all 1 and mixed.  Main path: ``CryptoEngine``
+               with 1024 slots, chunk 8 and ``rns_verify`` on
+               ``CryptoContext(n_limbs=138, exp_bits=2048)``, through
+               ``run_to_completion``: 1024 non-CRT RSA-2048 private-key
+               modexps (odd 2048-bit moduli with the top bit set, 2048-bit
+               exponents), 64 modmuls and 4 divmods, every result against
+               ``pow``/``divmod`` (run on a process pool), the launch counts
+               the calls imply, every fingerprint verified, and one wire
+               codeword corrupted, detected and repaired.  Then
+               ``RNSMontgomery`` modexp/modmul on one RSA-2048 N and the
+               ``rns_modmul`` example on the card;
+7. timing    — CUDA-event medians of each kernel and its plain version at
                the main-path shapes, beside the bound: the largest of bytes
                over 3.35 TB/s (H100 SXM data sheet) and, for each pipe
                (int32, conversion, fp32, load/store), the kernel's
                instructions on it over that pipe's peak rate;
-7. kernels   — one line listing every ported kernel.
+8. kernels   — one line listing every ported kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero with no ``ok`` line; so does a host without a CUDA device, or
@@ -56,7 +73,10 @@ from __future__ import annotations
 
 import datetime
 import json
+import math
+import multiprocessing
 import os
+import random
 import re
 import shutil
 import statistics
@@ -64,6 +84,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -132,6 +153,22 @@ CLIP_STRIDE = 1_000_003            # every such element is scaled past the clip
 CHUNK = 1 << 26                    # elements per plain-version comparison
 DIST_BACKEND = "nccl"
 
+# Slice 3, the crypto lane at RSA-2048 width: CryptoContext(n_limbs=138,
+# exp_bits=2048) — 138 15-bit moduli a side (M, M' of 2062 bits), nch_lo =
+# 139 B-side channels with m_a, n_hi = 138.  The 137 moduli of
+# configs/paper_rns.py do not fit a 2048-bit N (M' > 2N fails).
+CRYPTO_LIMBS, CRYPTO_EXP_BITS, RSA_BITS = 138, 2048, 2048
+CRYPTO_SLOTS, CRYPTO_CHUNK = 1024, 8
+# One divmod at this width is 2 * 2062 + 1 Algorithm-1 comparisons on one
+# column, each a compare launch that runs the n = 138 MRC in one thread:
+# about 3.5 s on the card, so the lane takes 4, not 64 (PERF.md).
+CRYPTO_MODEXPS, CRYPTO_MODMULS, CRYPTO_DIVMODS = 1024, 64, 4
+CRYPTO_SWEEP_LIMBS, CRYPTO_RRNS_LIMBS = (2, 3, 8, 17, 64, 138), (8, 138)
+CRYPTO_BATCHES = (1, 7, 300, 4099)
+CRYPTO_TIMING_BATCH = 8192
+CRYPTO_SHAPE = "rsa2048_n138"
+ORACLE_CHUNK = 16                  # pow() calls per process-pool task
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -185,16 +222,56 @@ def column_mix(name: str, n: int) -> Counter:
             + SUB_MOD + Counter({"int32": 2, "load/store": 3}))
 
 
+def mont_mix(name: str, n: int, nch_lo: int, n_hi: int) -> Counter:
+    """Instructions by pipe for one column of the Montgomery kernels
+    (csrc/mont_ladder.cu), summed over the lanes of its warp: the modular
+    steps the function needs, not the idle lanes of the warp's triangle or
+    its shuffles.  n base channels of B, nch_lo B-side channels with the
+    redundant ones, n_hi of B'."""
+    step = SUB_MOD + MUL_MOD + Counter({"load/store": 1})    # MRC, inverse load
+    term = MUL_MOD + Counter({"int32": 3, "load/store": 1})  # dot: add, compare,
+    #                                                          subtract; beta load
+    moduli = Counter({"load/store": nch_lo + 2 * n_hi,        # m_lo, m_hi, minv
+                      "int32": nch_lo + n_hi})                # and their 1/m (I2FP)
+    prod = (scaled(MUL_MOD, 2 * n)                            # q
+            + scaled(step, n * (n - 1) // 2) + scaled(term, n * n_hi)
+            + scaled(MUL_MOD, 3 * n_hi)                       # x'y', q'N, t M^-1
+            + scaled(Counter({"int32": 3}), n_hi)             # t: add, correct
+            + scaled(step, n_hi * (n_hi - 1) // 2) + scaled(term, n_hi * nch_lo))
+    if name == "mont_mul":   # x, y (both bases), neg, nhi in; lo, hi out
+        io = 2 * (nch_lo + n_hi) + n + n_hi + nch_lo + n_hi
+        return prod + moduli + Counter({"load/store": io})
+    # ladder: r0, r1, bit, neg, nhi in, four tiles out; two products and
+    # three selects (xor, and, xor) over both bases, the mask (2)
+    io = 2 * (nch_lo + n_hi) + 1 + n + n_hi + 2 * (nch_lo + n_hi)
+    return (scaled(prod, 2) + moduli + Counter({"load/store": io})
+            + Counter({"int32": 9 * (nch_lo + n_hi) + 2}))
+
+
+def mont_bytes(name: str, n: int, nch_lo: int, n_hi: int, B: int) -> int:
+    """Bytes the Montgomery kernels must move: each operand read once, each
+    output written once, and the seven tables once."""
+    tables = 4 * (n * n + nch_lo + n * n_hi + n_hi * n_hi + 2 * n_hi
+                  + n_hi * nch_lo)
+    if name == "mont_mul":
+        return 4 * B * (2 * (nch_lo + n_hi) + n + n_hi + nch_lo + n_hi) + tables
+    return 4 * B * (4 * (nch_lo + n_hi) + 1 + n + n_hi) + tables
+
+
 # "/*0070*/  @!P0 IMAD.MOV.U32 R1, ..." -> "IMAD"
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
 
 
 KERNEL_NAMES = ("mrc_kernel", "modmul_kernel", "compare_kernel",
-                "codec_encode_kernel", "codec_decode_kernel")
+                "codec_encode_kernel", "codec_decode_kernel",
+                "mont_mul_kernel", "mont_ladder_kernel")
 # The codec kernels are templates on their channel count; the build and
 # SASS lines show the instance the main path runs (4 channels written by
 # the encode, 3 base channels read by the decode), "_Z...ILi4E..." mangled.
-MAIN_INSTANCE = {"codec_encode_kernel": 4, "codec_decode_kernel": 3}
+# The Montgomery kernels are templates on the register slots a lane holds,
+# ceil(139 / 32) = 5 at RSA-2048 width.
+MAIN_INSTANCE = {"codec_encode_kernel": 4, "codec_decode_kernel": 3,
+                 "mont_mul_kernel": 5, "mont_ladder_kernel": 5}
 TEMPLATE_ARG = re.compile(r"ILi(\d+)E")
 
 
@@ -306,13 +383,16 @@ def launch_counts(ops) -> dict:
     return {"mrc": ops.mrc_op.launches, "modmul": ops.modmul_op.launches,
             "compare": ops.compare_op.launches,
             "codec_encode": ops.codec_encode_op.launches,
-            "codec_decode": ops.codec_decode_op.launches}
+            "codec_decode": ops.codec_decode_op.launches,
+            "mont_mul": ops.mont_mul_op.launches,
+            "mont_ladder": ops.mont_ladder_op.launches}
 
 
 def implied(**nonzero) -> dict:
     """Launch counts with every kernel not named at 0."""
     return {k: nonzero.get(k, 0) for k in ("mrc", "modmul", "compare",
-                                           "codec_encode", "codec_decode")}
+                                           "codec_encode", "codec_decode",
+                                           "mont_mul", "mont_ladder")}
 
 
 def codec_tables(codec):
@@ -613,6 +693,307 @@ def codec_rrns(dev) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------------ slice 3: the crypto lane
+def pow_chunk(items):
+    """The oracle of a chunk of modexps, in a worker process."""
+    return [pow(a, e, n) for a, e, n in items]
+
+
+def odd_moduli(ctx, count: int, rng, bits: int | None = None) -> list:
+    """``count`` odd moduli coprime to M·M': with ``bits``, of that many
+    bits with the top bit set; otherwise uniform below n_max, the first
+    the largest valid one."""
+    MMp = ctx.baseB.M * ctx.baseBp.M
+    out = []
+    if bits is None:
+        top = ctx.n_max - 1
+        while top % 2 == 0 or math.gcd(top, MMp) != 1:
+            top -= 1
+        out.append(top)
+    while len(out) < count:
+        N = ((rng.getrandbits(bits) | 1 << (bits - 1)) if bits
+             else rng.randrange(5, ctx.n_max)) | 1
+        if math.gcd(N, MMp) == 1:
+            out.append(N)
+    return out
+
+
+def crypto_columns(ctx, batch: int, rng, dev):
+    """Channel-major int32 operands of one parity case on ``dev``: x and y
+    (both bases) below 2N, and the rows neg and nhi of a different N in each
+    column (the first just below n_max).  x takes the corners 0, 1, N-1,
+    N, 2N-1 on its first columns, y on its last ones."""
+    import torch
+
+    B, Bp = ctx.baseB, ctx.baseBp
+    Ns = odd_moduli(ctx, batch, rng)
+    xs = [rng.randrange(2 * N) for N in Ns]
+    ys = [rng.randrange(2 * N) for N in Ns]
+    corners = (lambda N: 0, lambda N: 1, lambda N: N - 1, lambda N: N,
+               lambda N: 2 * N - 1)
+    for i, f in enumerate(corners[:batch]):
+        xs[i] = f(Ns[i])
+        ys[-1 - i] = f(Ns[-1 - i])
+
+    def tile(rows):
+        return torch.tensor(rows, dtype=torch.int32).T.contiguous().to(dev)
+
+    lo = lambda vs: tile([[v % t for t in ctx.lo_targets] for v in vs])
+    hi = lambda vs: tile([[v % m for m in Bp.moduli] for v in vs])
+    neg = tile([[(-pow(N, -1, m)) % m for m in B.moduli] for N in Ns])
+    nhi = tile([[N % m for m in Bp.moduli] for N in Ns])
+    return lo(xs), hi(xs), lo(ys), hi(ys), neg, nhi
+
+
+def crypto_parity(dev, max_err) -> dict:
+    """Both Montgomery kernels against their plain versions over the sweep,
+    bit for bit on every channel, the redundant ones included."""
+    import torch
+
+    from repro_torch.core import Layout
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mont_ladder import (mont_ladder_kernel_call,
+                                                 mont_ladder_plain,
+                                                 mont_mul_kernel_call,
+                                                 mont_mul_plain)
+    from repro_torch.serve.crypto import CryptoContext
+
+    rng = random.Random(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def hold(name, got, want, where):
+        for g, w in zip(got, want):
+            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+            max_err[name] = max(max_err[name], err)
+            require(g.shape == w.shape and err == 0,
+                    f"{name} kernel disagrees with its plain version at {where}")
+
+    cases = []
+    for n_limbs in CRYPTO_SWEEP_LIMBS:
+        layouts = [Layout.BASE_MA] + ([Layout.RRNS]
+                                      if n_limbs in CRYPTO_RRNS_LIMBS else [])
+        for layout in layouts:
+            ctx = CryptoContext(n_limbs=n_limbs, exp_bits=8, layout=layout)
+            tables = ops._mont_tables(ctx.baseB, ctx.baseBp, ctx.lo_targets,
+                                      dev)
+            for batch in CRYPTO_BATCHES:
+                where = dict(n_limbs=n_limbs, layout=layout.value, batch=batch)
+                cols = crypto_columns(ctx, batch, rng, dev)
+                hold("mont_mul", mont_mul_kernel_call(*cols, *tables),
+                     mont_mul_plain(*cols, *tables), where)
+                rows = {"zeros": torch.zeros(batch, dtype=torch.int32,
+                                             device=dev),
+                        "ones": torch.ones(batch, dtype=torch.int32,
+                                           device=dev),
+                        "mixed": torch.randint(0, 2, (batch,), generator=gen,
+                                               device=dev, dtype=torch.int32)}
+                xl, xh, yl, yh, neg, nhi = cols
+                for label, bit in rows.items():
+                    args = (xl, xh, yl, yh, bit, neg, nhi, *tables)
+                    hold("mont_ladder", mont_ladder_kernel_call(*args),
+                         mont_ladder_plain(*args), dict(where, bits=label))
+                cases.append(where)
+    torch.cuda.synchronize()
+    return {"cases": len(cases), "n_limbs": list(CRYPTO_SWEEP_LIMBS),
+            "rrns_n_limbs": list(CRYPTO_RRNS_LIMBS),
+            "batches": list(CRYPTO_BATCHES), "bit_rows": 3}
+
+
+def crypto_requests(ctx, rng) -> list:
+    """The lane's traffic: CRYPTO_MODEXPS non-CRT RSA private-key modexps
+    (an odd RSA_BITS-bit modulus with the top bit set, coprime to M·M'; a
+    base below N; an exponent uniform over RSA_BITS bits), with the modmuls
+    and the divmods spread evenly among them."""
+    from repro_torch.serve.crypto import CryptoRequest
+
+    M, reqs = ctx.baseB.M, []
+    Ns = odd_moduli(ctx, CRYPTO_MODEXPS + CRYPTO_MODMULS, rng, RSA_BITS)
+    mm_every = CRYPTO_MODEXPS // CRYPTO_MODMULS
+    dm_every = CRYPTO_MODEXPS // CRYPTO_DIVMODS
+    for i in range(1, CRYPTO_MODEXPS + 1):
+        N = Ns[i - 1]
+        reqs.append(CryptoRequest(rid=len(reqs), op="modexp",
+                                  a=rng.randrange(N),
+                                  b=rng.getrandbits(RSA_BITS), n=N))
+        if i % mm_every == 0:
+            N = Ns[CRYPTO_MODEXPS + i // mm_every - 1]
+            reqs.append(CryptoRequest(rid=len(reqs), op="modmul",
+                                      a=rng.randrange(N), b=rng.randrange(N),
+                                      n=N))
+        if i % dm_every == 0:
+            reqs.append(CryptoRequest(rid=len(reqs), op="divmod",
+                                      a=rng.randrange(M),
+                                      b=rng.randrange(1, M)))
+    return reqs
+
+
+def crypto_main_path(dev) -> dict:
+    """Slice 3's main path: the crypto lane at RSA-2048 width through
+    ``CryptoEngine.run_to_completion``, with the launch counts read just
+    around it; then the oracle, the fingerprints and a wire repair."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.batcher import CryptoEngine
+    from repro_torch.serve.crypto import CryptoContext
+
+    ctx = CryptoContext(n_limbs=CRYPTO_LIMBS, exp_bits=CRYPTO_EXP_BITS)
+    reqs = crypto_requests(ctx, random.Random(2048))
+    eng = CryptoEngine(crypto_slots=CRYPTO_SLOTS, crypto_ctx=ctx,
+                       crypto_chunk=CRYPTO_CHUNK, rns_verify=True, device=dev)
+    for r in reqs:
+        eng.submit(r)
+    # Instrumentation: CUDA events around each tick's ladder advance (the
+    # lane function ``step``: its device time), and the host clock around
+    # each per-request call (modmul, divmod and the retirement end in a host
+    # read of the result, so the clock sees their device work; a bind does
+    # not wait for the card).
+    ticks, host = [], {"bind": [], "modmul": [], "divmod": [], "retire": []}
+    advance = eng._crypto_fns["step"]
+    orig = {name: getattr(eng, "_crypto_" + name) for name in host}
+
+    def timed_advance(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = advance(*args)
+        e1.record()
+        ticks.append((e0, e1))
+        return out
+
+    def clocked(name):
+        def call(*args):
+            t = time.perf_counter()
+            out = orig[name](*args)
+            host[name].append(time.perf_counter() - t)
+            return out
+        return call
+
+    eng._crypto_fns["step"] = timed_advance
+    for name in host:
+        setattr(eng, "_crypto_" + name, clocked(name))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = launch_counts(ops)
+    eng._crypto_fns["step"] = advance
+    for name in orig:
+        delattr(eng, "_crypto_" + name)
+    n_ticks = len(ticks)
+    nbits = ctx.baseB.M.bit_length()
+    want = implied(
+        mont_ladder=n_ticks * CRYPTO_CHUNK,
+        mont_mul=2 * CRYPTO_MODEXPS + 2 * CRYPTO_MODMULS,
+        compare=CRYPTO_MODEXPS + CRYPTO_MODMULS
+        + CRYPTO_DIVMODS * (2 * nbits + 1),
+        codec_encode=2 * CRYPTO_MODEXPS)
+    require(n_ticks == CRYPTO_EXP_BITS // CRYPTO_CHUNK,
+            f"crypto lane took {n_ticks} ticks")
+    require(got == want, f"crypto lane launches {got}, expected {want}")
+    tick_ms = [a.elapsed_time(b) for a, b in ticks]
+
+    # the oracle: pow() on a process pool, divmod and modmul inline
+    require(sorted(r.rid for r in done) == [r.rid for r in reqs],
+            "crypto lane: requests missing")
+    modexps = [r for r in done if r.op == "modexp"]
+    items = [(r.a, r.b, r.n) for r in modexps]
+    workers = os.cpu_count() or 1
+    t1 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=workers,
+                             mp_context=multiprocessing.get_context("spawn")
+                             ) as pool:
+        chunks = [items[i : i + ORACLE_CHUNK]
+                  for i in range(0, len(items), ORACLE_CHUNK)]
+        pows = [v for part in pool.map(pow_chunk, chunks) for v in part]
+    oracle_s = time.perf_counter() - t1
+    for r, v in zip(modexps, pows):
+        require(r.result == v, f"crypto lane: modexp rid {r.rid} differs "
+                "from pow()")
+    for r in done:
+        if r.op == "modmul":
+            require(r.result == r.a * r.b % r.n,
+                    f"crypto lane: modmul rid {r.rid} differs")
+        elif r.op == "divmod":
+            require(r.result == divmod(r.a, r.b),
+                    f"crypto lane: divmod rid {r.rid} differs")
+
+    # fingerprints: verified at every retirement, and again now (no slot
+    # was reused); then one stored codeword corrupted and repaired
+    require(len(eng.verify_log) == len(reqs)
+            and all(eng.verify_log.values()),
+            "crypto lane: a retirement failed its fingerprint")
+    reverified = sum(eng.verify_request(r) for r in modexps)
+    require(reverified == CRYPTO_MODEXPS, "crypto lane: re-verification")
+    key = ("crypto", modexps[0].rid)
+    require(eng.wire_ok(key), "crypto lane: a clean codeword fails")
+    eng.corrupt_wire(key, channel=1, delta=3)
+    detected = not eng.wire_ok(key)
+    repair = eng.repair_wire(key)
+    require(detected and repair == {"repaired": 1, "unrecoverable": 0}
+            and eng.wire_ok(key) and eng.verify_request(modexps[0]),
+            f"crypto lane: corruption detected {detected}, repair {repair}")
+    return {"n_limbs": CRYPTO_LIMBS, "exp_bits": CRYPTO_EXP_BITS,
+            "nch_lo": ctx.nch_lo, "n_hi": ctx.n_hi,
+            "range_bits": ctx.baseB.M.bit_length(),
+            "slots": CRYPTO_SLOTS, "chunk": CRYPTO_CHUNK,
+            "requests": {"modexp": CRYPTO_MODEXPS, "modmul": CRYPTO_MODMULS,
+                         "divmod": CRYPTO_DIVMODS},
+            "ticks": n_ticks, "seconds": seconds,
+            "modexp_per_s": CRYPTO_MODEXPS / seconds,
+            "tick_ms_median": statistics.median(tick_ms),
+            "tick_ms_total": sum(tick_ms),
+            "host_s": {k: sum(v) for k, v in host.items()},
+            "host_ms": {k: {"median": 1e3 * statistics.median(v),
+                            "max": 1e3 * max(v), "first": 1e3 * v[0]}
+                        for k, v in host.items() if v},
+            "launches": got,
+            "oracle_ok": len(done), "oracle_s": oracle_s,
+            "oracle_workers": workers, "verified": len(eng.verify_log),
+            "reverified": reverified, "injected_detected": detected,
+            "injected_repair": repair}
+
+
+def crypto_frontends(dev) -> dict:
+    """``RNSMontgomery`` modexp and modmul on one RSA-2048 N against pow(),
+    and the ``rns_modmul`` example, each with the launches it implies."""
+    from repro_torch import rns_modmul
+    from repro_torch.core.montgomery import RNSMontgomery
+    from repro_torch.kernels import ops
+    from repro_torch.serve.crypto import CryptoContext
+
+    ctx = CryptoContext(n_limbs=CRYPTO_LIMBS, exp_bits=CRYPTO_EXP_BITS)
+    rng = random.Random(4096)
+    N = odd_moduli(ctx, 1, rng, RSA_BITS)[0]
+    mont = RNSMontgomery(ctx.baseB, ctx.baseBp, N, device=dev)
+    a, b, e = rng.randrange(N), rng.randrange(N), rng.getrandbits(RSA_BITS)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    require(mont.modexp(a, e) == pow(a, e, N), "RNSMontgomery.modexp")
+    modexp_s = time.perf_counter() - t0
+    got = launch_counts(ops)
+    require(got == implied(mont_ladder=e.bit_length(), mont_mul=2, compare=1),
+            f"RNSMontgomery.modexp launches {got}")
+    ops.reset_launches()
+    require(mont.modmul(a, b) == a * b % N, "RNSMontgomery.modmul")
+    require(launch_counts(ops) == implied(mont_mul=2, compare=1),
+            "RNSMontgomery.modmul launches")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ex = rns_modmul.main(dev, verbose=False)
+    example_s = time.perf_counter() - t0
+    require(ex["got"] == ex["want"], "rns_modmul example")
+    # 6 squares, 4 multiplies and the exit for E = 0b101101; one compare
+    got_ex = launch_counts(ops)
+    require(got_ex == implied(mont_mul=11, compare=1),
+            f"rns_modmul launches {got_ex}")
+    return {"modexp_s": modexp_s, "exp_bits": e.bit_length(),
+            "modexp_launches": got, "example_s": example_s,
+            "example_launches": got_ex}
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -668,7 +1049,7 @@ def main() -> int:
         return x.reshape(-1, x.shape[-1]).T.to(torch.int32).contiguous()
 
     max_err = {"mrc": 0, "modmul": 0, "compare": 0, "codec_encode": 0,
-               "codec_decode": 0.0}
+               "codec_decode": 0.0, "mont_mul": 0, "mont_ladder": 0}
 
     def hold(name, got, want, where):
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -829,7 +1210,20 @@ def main() -> int:
     emit({"phase": "codec", "step": "replicas", **codec_replicas(dev)})
     emit({"phase": "codec", "step": "rrns", **codec_rrns(dev)})
 
-    # -------------------------------------------------------- 6. timing
+    # ------------------------------------- 6. crypto: slice 3's main path
+    t0 = time.perf_counter()
+    sweep = crypto_parity(dev, max_err)
+    emit({"phase": "parity", "kernels": "mont", **sweep,
+          "seconds": time.perf_counter() - t0,
+          "max_abs_err": {k: max_err[k] for k in ("mont_mul", "mont_ladder")},
+          "exact": True})
+    crypto_run = crypto_main_path(dev)
+    launches.update({k: crypto_run["launches"][k]
+                     for k in ("mont_mul", "mont_ladder")})
+    emit({"phase": "crypto", "step": "lane", **crypto_run})
+    emit({"phase": "crypto", "step": "frontends", **crypto_frontends(dev)})
+
+    # -------------------------------------------------------- 7. timing
     def median_ms(fn, runs=20, warmup=3):
         for _ in range(warmup):
             fn()
@@ -939,20 +1333,72 @@ def main() -> int:
         timings[(name, MODEL_NAME)] = row
     del flat, wire
 
-    # ------------------------------------------------------- 7. kernels
+    # the Montgomery kernels at RSA-2048 width on CRYPTO_TIMING_BATCH
+    # columns: 512 distinct columns tiled (the kernels run in constant time,
+    # whatever the data)
+    from repro_torch.kernels.mont_ladder import (mont_ladder_kernel_call,
+                                                 mont_ladder_plain,
+                                                 mont_mul_kernel_call,
+                                                 mont_mul_plain)
+    from repro_torch.serve.crypto import CryptoContext
+
+    ctx = CryptoContext(n_limbs=CRYPTO_LIMBS, exp_bits=CRYPTO_EXP_BITS)
+    reps = CRYPTO_TIMING_BATCH // 512
+    cols = [c.repeat(1, reps).contiguous()
+            for c in crypto_columns(ctx, 512, random.Random(8192), dev)]
+    bit = torch.randint(0, 2, (CRYPTO_TIMING_BATCH,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    tables = ops._mont_tables(ctx.baseB, ctx.baseBp, ctx.lo_targets, dev)
+    xl, xh, yl, yh, neg, nhi = cols
+    lad = (xl, xh, yl, yh, bit, neg, nhi, *tables)
+    shape = (ctx.n, ctx.nch_lo, ctx.n_hi)
+    mont_work = {
+        "mont_mul": (lambda: mont_mul_kernel_call(*cols, *tables),
+                     lambda: mont_mul_plain(*cols, *tables)),
+        "mont_ladder": (lambda: mont_ladder_kernel_call(*lad),
+                        lambda: mont_ladder_plain(*lad)),
+    }
+    per_call = {"mont_mul": 1, "mont_ladder": 1}
+    for name, (kern, plain) in mont_work.items():
+        ms = median_ms(kern)
+        plain_ms = median_ms(plain, runs=5, warmup=1)
+        mix = mont_mix(name, *shape)
+        nbytes = mont_bytes(name, *shape, CRYPTO_TIMING_BATCH)
+        bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix,
+                                                  CRYPTO_TIMING_BATCH)
+        row = {"phase": "timing", "kernel": name, "shape": CRYPTO_SHAPE,
+               "n": ctx.n, "nch_lo": ctx.nch_lo, "n_hi": ctx.n_hi,
+               "batch": CRYPTO_TIMING_BATCH, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_pipe": pipe, "bound_share": bound_ms / ms,
+               "pipe_ms": pipe_ms, "bytes": nbytes,
+               "instructions": {p: CRYPTO_TIMING_BATCH * c
+                                for p, c in mix.items()},
+               "sms": sms, "clock_max_mhz": clock_mhz,
+               "launches_per_call": per_call[name], "card": card}
+        emit(row)
+        timings[(name, CRYPTO_SHAPE)] = row
+    del cols, lad
+
+    # ------------------------------------------------------- 8. kernels
     replaces = {"mrc": "src/repro/kernels/mrc.py:33",
                 "modmul": "src/repro/kernels/modmul.py:26",
                 "compare": "src/repro/kernels/rns_compare.py:44",
                 "codec_encode": "src/repro/kernels/codec_encode.py:83",
-                "codec_decode": "src/repro/kernels/codec_decode.py:93"}
+                "codec_decode": "src/repro/kernels/codec_decode.py:93",
+                "mont_mul": "src/repro/kernels/mont_ladder.py:125",
+                "mont_ladder": "src/repro/kernels/mont_ladder.py:149"}
     sources = {"mrc": "src/repro_torch/kernels/csrc/mrc.cu",
                "modmul": "src/repro_torch/kernels/csrc/modmul.cu",
                "compare": "src/repro_torch/kernels/csrc/rns_compare.cu",
                "codec_encode": "src/repro_torch/kernels/csrc/codec_encode.cu",
-               "codec_decode": "src/repro_torch/kernels/csrc/codec_decode.cu"}
+               "codec_decode": "src/repro_torch/kernels/csrc/codec_decode.cu",
+               "mont_mul": "src/repro_torch/kernels/csrc/mont_ladder.cu",
+               "mont_ladder": "src/repro_torch/kernels/csrc/mont_ladder.cu"}
     shape_of = {"mrc": "paper_n137", "modmul": "paper_n137",
                 "compare": "paper_n137", "codec_encode": MODEL_NAME,
-                "codec_decode": MODEL_NAME}
+                "codec_decode": MODEL_NAME, "mont_mul": CRYPTO_SHAPE,
+                "mont_ladder": CRYPTO_SHAPE}
     rows = []
     for name in replaces:
         t = timings[(name, shape_of[name])]

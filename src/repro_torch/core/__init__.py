@@ -34,3 +34,10 @@ from .division import (  # noqa: F401
     scale_pow2,
     parity,
 )
+from .montgomery import (  # noqa: F401
+    RNSMontgomery,
+    DualRep,
+    mont_mul,
+    ladder_step,
+    mont_consts,
+)

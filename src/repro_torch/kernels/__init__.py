@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for the RNS hot spots, for Hopper (sm_90a).
 
 Kernels: mrc (Alg. 2), modmul (ring product), rns_compare (fused Alg. 1),
-and the gradient codec's codec_encode and codec_decode, each a ``.cu``
-source under ``csrc/`` with a plain torch version beside it and a public
-wrapper in ops.py.  ``ref.py`` holds core-level oracles.
+the gradient codec's codec_encode and codec_decode, and the dual-base
+Montgomery product and ladder bit (mont_ladder), each a ``.cu`` source
+under ``csrc/`` with a plain torch version beside it and a public wrapper
+in ops.py.  ``ref.py`` holds core-level oracles.
 The kernels are built with ``nvcc`` at first use (build.py), never at import.
 """
 from .ops import (  # noqa: F401
@@ -11,6 +12,8 @@ from .ops import (  # noqa: F401
     codec_encode_op,
     compare_op,
     modmul_op,
+    mont_ladder_op,
+    mont_mul_op,
     mrc_op,
     reset_launches,
 )

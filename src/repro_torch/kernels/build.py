@@ -28,7 +28,7 @@ __all__ = ["build", "load", "check", "pointers", "stream"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("mrc.cu", "modmul.cu", "rns_compare.cu", "codec_encode.cu",
-            "codec_decode.cu")
+            "codec_decode.cu", "mont_ladder.cu")
 # sm_90a (Hopper); IEEE division and no FMA contraction of the Barrett
 # product are the defaults — never add --use_fast_math (see common.cuh).
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -44,6 +44,12 @@ _SIGNATURES = {
     "rns_codec_encode": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _L, _P],
     # x, out, host m / inv / half, n, inv_scale, B, stream
     "rns_codec_decode": [_P, _P, _P, _P, _P, _I, _F, _L, _P],
+    # x lo/hi, y lo/hi, neg, nhi, out lo/hi, 7 tables, n, nch_lo, n_hi, B,
+    # stream
+    "rns_mont_mul": [_P] * 15 + [_I, _I, _I, _L, _P],
+    # r0 lo/hi, r1 lo/hi, bit, neg, nhi, 4 outs, 7 tables, n, nch_lo, n_hi,
+    # B, stream
+    "rns_mont_ladder": [_P] * 18 + [_I, _I, _I, _L, _P],
 }
 
 

@@ -1,6 +1,7 @@
 """Public wrappers for the RNS kernels: ``mrc_op``, ``modmul_op``,
-``compare_op``, and the gradient codec's ``codec_encode_op`` and
-``codec_decode_op``.
+``compare_op``, the gradient codec's ``codec_encode_op`` and
+``codec_decode_op``, and the dual-base Montgomery ``mont_mul_op`` and
+``mont_ladder_op``.
 
 They present the same channels-last ``(..., n)`` API as ``repro_torch.core``
 and handle:
@@ -32,11 +33,14 @@ from ..core.base import RNSBase
 from .codec_decode import codec_decode_kernel_call, codec_decode_plain
 from .codec_encode import codec_encode_kernel_call, codec_encode_plain
 from .modmul import modmul_kernel_call, modmul_plain
+from .mont_ladder import (mont_ladder_kernel_call, mont_ladder_plain,
+                          mont_mul_kernel_call, mont_mul_plain)
 from .mrc import mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
 
 __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
-           "codec_decode_op", "reset_launches"]
+           "codec_decode_op", "mont_mul_op", "mont_ladder_op",
+           "reset_launches"]
 
 
 def _on_card(t) -> bool:
@@ -225,11 +229,125 @@ def codec_decode_op(codec, summed, *, channel_major: bool = False):
     return out if channel_major else out.reshape(lead)
 
 
+# ------------------------------------------------- Montgomery (dual-base)
+@functools.lru_cache(maxsize=None)
+def _mont_tables_np(baseB: RNSBase, baseBp: RNSBase,
+                    lo_targets: tuple[int, ...]):
+    """Host tables of the dual-base Montgomery kernels, in their
+    orientation (kernels/mont_ladder.py), cached per base pair and B-side
+    channel layout (N-independent)."""
+    from ..core.montgomery import minv_residues
+
+    for b in (baseB, baseBp):
+        _check_bits(b)
+    hi_t = tuple(int(m) for m in baseBp.moduli)
+    return (
+        np.asarray(baseB.inv_tri_np, np.int32),                 # (n, n)
+        np.asarray(lo_targets, np.int32),                       # (nch_lo,)
+        np.asarray(baseB.betas_for(hi_t), np.int32).T,          # (n, n')
+        np.asarray(baseBp.inv_tri_np, np.int32),                # (n', n')
+        np.asarray(hi_t, np.int32),                             # (n',)
+        np.asarray(baseBp.betas_for(lo_targets), np.int32).T,   # (n', nch_lo)
+        np.asarray(minv_residues(baseB, hi_t), np.int32),       # (n',)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _mont_tables(baseB: RNSBase, baseBp: RNSBase,
+                 lo_targets: tuple[int, ...], device: torch.device):
+    """``_mont_tables_np`` as contiguous int32 tensors on ``device``,
+    uploaded once."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                 for t in _mont_tables_np(baseB, baseBp, lo_targets))
+
+
+def _mont_prep(d, lead):
+    """DualRep -> channel-major (nch_lo, B) and (n_hi, B) int32 tiles of
+    its value broadcast to the batch shape ``lead``."""
+    lo = d.lo._cl().expand(*lead, d.lo.n_channels)
+    hi = d.hi._cl().expand(*lead, d.hi.base.n)
+    return _tiles(lo, d.lo.n_channels)[0], _tiles(hi, d.hi.base.n)[0]
+
+
+def _mont_consts_prep(x, neg, n_hi, lead):
+    """The per-``N`` rows broadcast to ``lead`` as (n, B) / (n_hi, B) tiles."""
+    neg = neg.expand(*lead, x.lo.base.n)
+    n_hi = n_hi.expand(*lead, x.hi.base.n)
+    return _tiles(neg, x.lo.base.n)[0], _tiles(n_hi, x.hi.base.n)[0]
+
+
+def _mont_wrap(x, out_lo, out_hi, lead):
+    from ..core.montgomery import DualRep
+
+    lo = _untile(out_lo, lead, out_lo.shape[0], x.lo.dtype)
+    hi = _untile(out_hi, lead, out_hi.shape[0], x.hi.dtype)
+    return DualRep(x.lo._wrap(lo, signed=False), x.hi._wrap(hi, signed=False))
+
+
+def _mont_setup(x, operands, neg, n_hi):
+    """Tables, the per-``N`` rows as tensors on ``x``'s device, and the
+    broadcast batch shape of ``operands`` (DualReps or bit tensors) and the
+    rows — one call can mix moduli N across columns."""
+    _check_bits(x.lo.base)
+    _check_bits(x.hi.base)
+    dev = x.lo.device
+    lo_targets = tuple(int(m) for m in x.lo.channel_moduli)
+    tables = _mont_tables(x.lo.base, x.hi.base, lo_targets, dev)
+    neg = torch.as_tensor(neg, device=dev)
+    n_hi = torch.as_tensor(n_hi, device=dev)
+    shapes = [o.lo.shape if hasattr(o, "lo") else o.shape for o in operands]
+    # numpy's broadcast rule: torch.broadcast_shapes imports torch's _refs
+    # package on its first call, seconds of host time
+    lead = np.broadcast_shapes(*shapes, neg.shape[:-1], n_hi.shape[:-1])
+    return tables, neg, n_hi, tuple(lead)
+
+
+def mont_mul_op(x, y, neg, n_hi):
+    """Batched Montgomery product MM(X, Y) via the product kernel.
+
+    ``x``/``y`` are ``DualRep`` operands (core/montgomery.py); ``neg`` /
+    ``n_hi`` are the per-``N`` channel rows from ``mont_consts`` — data,
+    not constants, broadcast against the batch.  Bitwise-identical to the
+    plain ``_mont_mul_torch``.
+    """
+    tables, neg, n_hi, lead = _mont_setup(x, (x, y), neg, n_hi)
+    xlo, xhi = _mont_prep(x, lead)
+    ylo, yhi = _mont_prep(y, lead)
+    neg_t, nhi_t = _mont_consts_prep(x, neg, n_hi, lead)
+    if _on_card(xlo):
+        out_lo, out_hi = mont_mul_kernel_call(xlo, xhi, ylo, yhi, neg_t,
+                                              nhi_t, *tables)
+        mont_mul_op.launches += 1
+    else:
+        out_lo, out_hi = mont_mul_plain(xlo, xhi, ylo, yhi, neg_t, nhi_t,
+                                        *tables)
+    return _mont_wrap(x, out_lo, out_hi, lead)
+
+
+def mont_ladder_op(r0, r1, bit, neg, n_hi):
+    """One Montgomery-ladder bit — two products and the branchless select
+    — in a single kernel launch.  Returns the updated ``(r0, r1)`` pair."""
+    bit = torch.as_tensor(bit, device=r0.lo.device)
+    tables, neg, n_hi, lead = _mont_setup(r0, (r0, r1, bit), neg, n_hi)
+    r0lo, r0hi = _mont_prep(r0, lead)
+    r1lo, r1hi = _mont_prep(r1, lead)
+    neg_t, nhi_t = _mont_consts_prep(r0, neg, n_hi, lead)
+    bit_t = bit.expand(lead).reshape(-1).to(torch.int32).contiguous()
+    args = (r0lo, r0hi, r1lo, r1hi, bit_t, neg_t, nhi_t, *tables)
+    if _on_card(r0lo):
+        o0lo, o0hi, o1lo, o1hi = mont_ladder_kernel_call(*args)
+        mont_ladder_op.launches += 1
+    else:
+        o0lo, o0hi, o1lo, o1hi = mont_ladder_plain(*args)
+    return (_mont_wrap(r0, o0lo, o0hi, lead),
+            _mont_wrap(r0, o1lo, o1hi, lead))
+
+
 def reset_launches() -> dict:
     """Zero every wrapper's launch count; returns the counts it cleared."""
     counts = {}
     for op in (mrc_op, modmul_op, compare_op, codec_encode_op,
-               codec_decode_op):
+               codec_decode_op, mont_mul_op, mont_ladder_op):
         counts[op.__name__] = op.launches
         op.launches = 0
     return counts
@@ -240,3 +358,5 @@ modmul_op.launches = 0
 compare_op.launches = 0
 codec_encode_op.launches = 0
 codec_decode_op.launches = 0
+mont_mul_op.launches = 0
+mont_ladder_op.launches = 0

@@ -1,0 +1,747 @@
+"""The port's crypto path (``repro_torch.core.montgomery``, the Montgomery
+kernels of ``repro_torch.kernels``, ``repro_torch.serve`` and the crypto
+serve CLI) against the reference's.
+
+Every comparison feeds the same seeded inputs (numpy and Python's
+``random``) to ``repro`` and to ``repro_torch``.  The reference's Pallas
+Montgomery kernels run in interpret mode under ``repro.core.backend(
+"pallas")``, as ``tests/test_crypto_service.py`` runs them.  On the CPU the
+port's wrappers run the kernels' plain torch versions, the same Barrett
+arithmetic as ``csrc/mont_ladder.cu``; tests marked ``cuda`` hold the CUDA
+kernels against those plain versions on the card and skip on a host
+without one.
+
+Tolerance: none.  Residues, big-integer results and the f32 fingerprint
+rows (exact sums at these widths) must be equal; every result also equals
+Python's ``pow``/``divmod``.
+"""
+import doctest
+import importlib
+import json
+import math
+import os
+import random
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import repro  # noqa: F401  (x64, as the reference's own tests run it)
+from repro.core import backend as r_backend
+from repro.core.array import Layout as RLayout
+from repro.core.array import RnsArray as RArray
+from repro.core.base import RNSBase as RBase
+from repro.core.montgomery import DualRep as RDual
+from repro.core.montgomery import RNSMontgomery as RMont
+from repro.core.montgomery import _mont_mul_jnp as r_mont_mul_jnp
+from repro.core.montgomery import exp_bits_msb as r_exp_bits_msb
+from repro.core.montgomery import ladder_step as r_ladder_step
+from repro.core.montgomery import minv_residues as r_minv_residues
+from repro.core.montgomery import mont_consts as r_mont_consts
+from repro.core.montgomery import mont_mul as r_mont_mul
+from repro.kernels.ops import _mont_tables_np as r_mont_tables_np
+from repro.serve.crypto import CryptoContext as RContext
+from repro.serve.crypto import make_crypto_fns as r_make_crypto_fns
+from repro.serve.serve_step import crypto_state_abstract
+from repro_torch.core import Layout, RnsArray, backend
+from repro_torch.core.base import RNSBase, gen_coprime_moduli
+from repro_torch.core.montgomery import (
+    DualRep,
+    RNSMontgomery,
+    exp_bits_msb,
+    ladder_step,
+    minv_residues,
+    mont_consts,
+    mont_mul,
+)
+from repro_torch.dist.grad_codec import GradCodec
+from repro_torch.kernels import ops
+from repro_torch.kernels.mont_ladder import (
+    MAX_CHANNELS,
+    mont_ladder_kernel_call,
+    mont_ladder_plain,
+    mont_mul_kernel_call,
+    mont_mul_plain,
+)
+from repro_torch.launch import serve as t_serve
+from repro_torch.serve.batcher import CryptoEngine
+from repro_torch.serve.crypto import (
+    CryptoContext,
+    CryptoLane,
+    CryptoRequest,
+    make_crypto_fns,
+)
+from repro_torch.serve.serve_step import crypto_state_zeros
+
+ROOT = Path(__file__).resolve().parents[1]
+LAYOUTS = ["base_ma", "rrns"]
+
+
+def eq(got, want):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def bases(n_limbs: int):
+    """Port and reference dual bases (the interleaved draw of
+    ``CryptoContext``) and the spare modulus for RRNS layouts."""
+    k = n_limbs
+    ms = gen_coprime_moduli(2 * k + 3, 15)
+    tb = (RNSBase(moduli=tuple(ms[0:2 * k:2]), ma=ms[2 * k]),
+          RNSBase(moduli=tuple(ms[1:2 * k:2]), ma=ms[2 * k + 1]))
+    rb = tuple(RBase(moduli=b.moduli, ma=b.ma, bits=15) for b in tb)
+    return tb, rb, ms[2 * k + 2]
+
+
+def moduli(B, Bp, count: int, rng):
+    """``count`` odd moduli coprime to M·M', the first just below n_max."""
+    n_max, MMp = min(B.M // 4, Bp.M // 2), B.M * Bp.M
+    top = n_max - 1
+    while top % 2 == 0 or math.gcd(top, MMp) != 1:
+        top -= 1
+    out = [top]
+    while len(out) < count:
+        N = rng.randrange(5, n_max) | 1
+        if math.gcd(N, MMp) == 1:
+            out.append(N)
+    return out
+
+
+def operands(Ns, rng):
+    """Values < 2N per column, with the corners 0, 1, N-1, N and 2N-1."""
+    vals = [rng.randrange(2 * N) for N in Ns]
+    for i, f in enumerate((lambda N: 0, lambda N: 1, lambda N: N - 1,
+                           lambda N: N, lambda N: 2 * N - 1)):
+        if i < len(Ns):
+            vals[i] = f(Ns[i])
+    return vals
+
+
+class Pair:
+    """One batch of Montgomery operands in both packages: a different N per
+    column, per-column constant rows, and x, y < 2N."""
+
+    def __init__(self, n_limbs, layout, batch, seed):
+        (B, Bp), (rB, rBp), spare = bases(n_limbs)
+        self.B, self.Bp, self.rB, self.rBp = B, Bp, rB, rBp
+        self.layout = Layout(layout)
+        self.mb = spare if self.layout is Layout.RRNS else None
+        rng = random.Random(seed)
+        self.Ns = moduli(B, Bp, batch, rng)
+        cs = [mont_consts(B, Bp, N, layout=self.layout, mb=self.mb)
+              for N in self.Ns]
+        self.neg = np.stack([c["neg"] for c in cs])
+        self.n_hi = np.stack([c["n_hi"] for c in cs])
+        self.lo_t = tuple(B.moduli) + (B.ma,) + ((self.mb,) if self.mb else ())
+        # x takes the corners on the first columns, y on the last ones
+        self.xs = operands(self.Ns, rng)
+        self.ys = operands(self.Ns[::-1], rng)[::-1]
+        self.bits = np.asarray([rng.randrange(2) for _ in self.Ns], np.int32)
+
+    def rows(self, vals):
+        lo = np.asarray([[v % t for t in self.lo_t] for v in vals], np.int32)
+        hi = np.asarray([[v % m for m in self.Bp.moduli] for v in vals],
+                        np.int32)
+        return lo, hi
+
+    def port(self, vals):
+        lo, hi = self.rows(vals)
+        return DualRep(RnsArray.from_packed(self.B, lo, mb=self.mb, device="cpu"),
+                       RnsArray.from_packed(self.Bp, hi, device="cpu"))
+
+    def ref(self, vals):
+        lo, hi = self.rows(vals)
+        return RDual(RArray.from_packed(self.rB, jnp.asarray(lo), mb=self.mb),
+                     RArray.from_packed(self.rBp, jnp.asarray(hi)))
+
+
+def same_dual(t, r):
+    eq(t.lo.to_packed(), r.lo.to_packed())
+    eq(t.hi.to_packed(), r.hi.to_packed())
+
+
+# ------------------------------------------------------------- constants
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n_limbs", [3, 6, 12])
+def test_mont_consts_and_minv_match_reference(layout, n_limbs):
+    (B, Bp), (rB, rBp), spare = bases(n_limbs)
+    mb = spare if layout == "rrns" else None
+    rng = random.Random(n_limbs)
+    for N in moduli(B, Bp, 3, rng):
+        got = mont_consts(B, Bp, N, layout=Layout(layout), mb=mb)
+        want = r_mont_consts(rB, rBp, N, layout=RLayout(layout), mb=mb)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            eq(got[k], want[k])
+    hi_t = tuple(Bp.moduli)
+    eq(minv_residues(B, hi_t), r_minv_residues(rB, hi_t))
+
+
+def test_mont_consts_refusals_match_reference():
+    (B, Bp), (rB, rBp), _ = bases(3)
+    for N, what in ((B.M, "M > 4N"), (B.moduli[0] * 3, "coprime")):
+        with pytest.raises(ValueError, match=what):
+            r_mont_consts(rB, rBp, N)
+        with pytest.raises(ValueError, match=what):
+            mont_consts(B, Bp, N)
+
+
+@pytest.mark.parametrize("e,nbits", [(0, 1), (1, 1), (0b1011, 8),
+                                     (65537, 17), ((1 << 40) - 3, 64)])
+def test_exp_bits_msb_matches_reference(e, nbits):
+    eq(exp_bits_msb(e, nbits), r_exp_bits_msb(e, nbits))
+
+
+def test_exp_bits_msb_refuses_wide_exponents():
+    with pytest.raises(ValueError, match="bits"):
+        exp_bits_msb(1 << 8, 8)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n_limbs", [2, 6, 17])
+def test_mont_tables_match_reference(layout, n_limbs):
+    """The port's tables are the reference's in the CUDA kernel's
+    orientation: the triangles and both beta tables transposed, the moduli
+    and M^{-1} rows flat."""
+    (B, Bp), (rB, rBp), spare = bases(n_limbs)
+    lo_t = tuple(B.moduli) + (B.ma,) + ((spare,) if layout == "rrns" else ())
+    got = ops._mont_tables_np(B, Bp, lo_t)
+    want = r_mont_tables_np(rB, rBp, lo_t)
+    for i in (0, 2, 3, 5):          # inv_lo, bl2h, inv_hi, bh2l
+        eq(got[i], np.asarray(want[i]).T)
+    for i in (1, 4, 6):             # m_lo, m_hi, minv
+        eq(got[i], np.asarray(want[i])[:, 0])
+    dev = ops._mont_tables(B, Bp, lo_t, torch.device("cpu"))
+    assert all(t.dtype == torch.int32 and t.is_contiguous() for t in dev)
+    for t, w in zip(dev, got):
+        eq(t, w)
+
+
+# ------------------------------------- the product and the ladder bit
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mont_mul_matches_reference(layout):
+    """Both port routes on the CPU — the plain product of core/montgomery.py
+    and the kernel wrapper's plain twin — equal the reference's jnp product
+    and its Pallas kernel bit for bit on every channel, with a different N
+    in each of 64 columns (one just below n_max) and the operand corners
+    0, 1, N-1, N, 2N-1; and the big-int oracle x·y·M^{-1} mod N."""
+    p = Pair(6, layout, 64, seed=1)
+    x, y, rx, ry = p.port(p.xs), p.port(p.ys), p.ref(p.xs), p.ref(p.ys)
+    plain = mont_mul(x, y, p.neg, p.n_hi)
+    twin = ops.mont_mul_op(x, y, torch.from_numpy(p.neg),
+                           torch.from_numpy(p.n_hi))
+    neg, nhi = jnp.asarray(p.neg), jnp.asarray(p.n_hi)
+    same_dual(plain, r_mont_mul_jnp(rx, ry, neg, nhi))
+    with r_backend("pallas"):
+        same_dual(twin, r_mont_mul(rx, ry, neg, nhi))
+    same_dual(twin, plain)
+    lo = plain.lo.to_packed().numpy()
+    from repro_torch.core.convert import rns_to_int
+    for i, (a, b, N) in enumerate(zip(p.xs, p.ys, p.Ns)):
+        R = rns_to_int(p.B, lo[i][: p.B.n])
+        assert R < 2 * N and R % N == a * b * pow(p.B.M, -1, N) % N
+        assert [int(v) for v in lo[i]] == [R % t for t in p.lo_t]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_ladder_step_matches_reference(layout):
+    """One ladder bit on 64 columns with mixed bits: the port's plain route
+    and the kernel's plain twin equal the reference's Pallas kernel."""
+    p = Pair(6, layout, 64, seed=2)
+    r0, r1, q0, q1 = p.port(p.xs), p.port(p.ys), p.ref(p.xs), p.ref(p.ys)
+    bit = torch.from_numpy(p.bits)
+    plain = ladder_step(r0, r1, bit, p.neg, p.n_hi)
+    twin = ops.mont_ladder_op(r0, r1, bit, torch.from_numpy(p.neg),
+                              torch.from_numpy(p.n_hi))
+    with r_backend("pallas"):
+        want = r_ladder_step(q0, q1, jnp.asarray(p.bits), jnp.asarray(p.neg),
+                             jnp.asarray(p.n_hi))
+    for a, b, w in zip(plain, twin, want):
+        same_dual(a, w)
+        same_dual(b, w)
+
+
+@pytest.mark.parametrize("bits", ["zeros", "ones"])
+def test_ladder_step_uniform_bits_match_reference(bits):
+    p = Pair(6, "base_ma", 16, seed=3)
+    b = np.full(16, 0 if bits == "zeros" else 1, np.int32)
+    r0, r1 = p.port(p.xs), p.port(p.ys)
+    twin = ops.mont_ladder_op(r0, r1, torch.from_numpy(b), p.neg, p.n_hi)
+    want = r_ladder_step(p.ref(p.xs), p.ref(p.ys), jnp.asarray(b),
+                         jnp.asarray(p.neg), jnp.asarray(p.n_hi))
+    for a, w in zip(twin, want):
+        same_dual(a, w)
+
+
+@pytest.mark.parametrize("n_limbs", [2, 3, 17])
+def test_kernel_plain_twins_match_core_product(n_limbs):
+    """At the widths the chip sweep starts from, the tile-level twins equal
+    the plain core product (itself held against the reference above)."""
+    p = Pair(n_limbs, "rrns", 7, seed=n_limbs)
+    x, y = p.port(p.xs), p.port(p.ys)
+    tables = ops._mont_tables(p.B, p.Bp, p.lo_t, torch.device("cpu"))
+    tiles = [torch.from_numpy(t).T.contiguous()
+             for t in (*p.rows(p.xs), *p.rows(p.ys))]
+    neg_t = torch.from_numpy(p.neg).T.contiguous()
+    nhi_t = torch.from_numpy(p.n_hi).T.contiguous()
+    lo, hi = mont_mul_plain(*tiles, neg_t, nhi_t, *tables)
+    want = mont_mul(x, y, p.neg, p.n_hi)
+    eq(lo.T, want.lo.to_packed())
+    eq(hi.T, want.hi.to_packed())
+    bit = torch.from_numpy(p.bits)
+    outs = mont_ladder_plain(*tiles, bit, neg_t, nhi_t, *tables)
+    for got, w in zip(outs, [t for d in ladder_step(x, y, bit, p.neg, p.n_hi)
+                             for t in (d.lo, d.hi)]):
+        eq(got.T, w.to_packed())
+
+
+def test_mont_ops_broadcast_one_modulus_over_the_batch():
+    """One (n,) constant row broadcasts over a batch of operands, as the
+    reference's ``lead`` broadcasting does; the count of kernel launches
+    stays 0 on the CPU."""
+    p = Pair(4, "base_ma", 5, seed=5)
+    N = p.Ns[1]
+    c = mont_consts(p.B, p.Bp, N)
+    vals = [v % (2 * N) for v in p.xs]
+    x = p.port(vals)
+    before = (ops.mont_mul_op.launches, ops.mont_ladder_op.launches)
+    got = ops.mont_mul_op(x, x, c["neg"], c["n_hi"])
+    same_dual(got, r_mont_mul_jnp(p.ref(vals), p.ref(vals),
+                                  jnp.asarray(c["neg"]), jnp.asarray(c["n_hi"])))
+    a, b = ops.mont_ladder_op(x, x, 1, c["neg"], c["n_hi"])
+    ra, rb = r_ladder_step(p.ref(vals), p.ref(vals), jnp.int32(1),
+                           jnp.asarray(c["neg"]), jnp.asarray(c["n_hi"]))
+    same_dual(a, ra)
+    same_dual(b, rb)
+    assert (ops.mont_mul_op.launches, ops.mont_ladder_op.launches) == before
+
+
+def test_kernel_wrappers_refuse_host_tensors_and_bad_tables():
+    """No fallback: the kernel wrappers take CUDA tensors only, and check
+    every table's shape first."""
+    p = Pair(3, "base_ma", 4, seed=6)
+    tables = ops._mont_tables(p.B, p.Bp, p.lo_t, torch.device("cpu"))
+    tiles = [torch.from_numpy(t).T.contiguous()
+             for t in (*p.rows(p.xs), *p.rows(p.ys))]
+    neg_t = torch.from_numpy(p.neg).T.contiguous()
+    nhi_t = torch.from_numpy(p.n_hi).T.contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        mont_mul_kernel_call(*tiles, neg_t, nhi_t, *tables)
+    bit = torch.from_numpy(p.bits)
+    with pytest.raises(ValueError, match="CUDA"):
+        mont_ladder_kernel_call(*tiles, bit, neg_t, nhi_t, *tables)
+    with pytest.raises(ValueError, match="table shapes"):
+        mont_mul_kernel_call(*tiles, neg_t, nhi_t, *tables[:-1],
+                             tables[-1][:-1])
+    with backend("cuda"), pytest.raises(ValueError, match="CUDA tensor"):
+        mont_mul(p.port(p.xs), p.port(p.ys), p.neg, p.n_hi)
+    # wider than the kernels' widest template instance: refused up front
+    n = MAX_CHANNELS + 1
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    wide = [z(n, n), z(n + 1), z(n, n), z(n, n), z(n), z(n, n + 1), z(n)]
+    with pytest.raises(ValueError, match="at most 160 channels"):
+        mont_mul_kernel_call(z(n + 1, 2), z(n, 2), z(n + 1, 2), z(n, 2),
+                             z(n, 2), z(n, 2), *wide)
+
+
+def test_dualrep_hi_must_be_base_layout():
+    (B, Bp), _, _ = bases(3)
+    lo = RnsArray.from_packed(B, np.zeros(B.n + 1, np.int32), device="cpu")
+    with pytest.raises(ValueError, match="Layout.BASE"):
+        DualRep(lo, lo)
+
+
+# -------------------------------------------------------- RNSMontgomery
+@pytest.mark.parametrize("n_limbs", [6, 12])
+def test_rns_montgomery_modexp_modmul_match_pow_and_reference(n_limbs):
+    (B, Bp), (rB, rBp), _ = bases(n_limbs)
+    rng = random.Random(n_limbs)
+    N = moduli(B, Bp, 2, rng)[1]
+    mont = RNSMontgomery(B, Bp, N, device="cpu")
+    cases = [(rng.randrange(1, N), rng.randrange(1 << 16)),
+             (rng.randrange(1, N), 0), (rng.randrange(1, N), 1),
+             (N - 1, (1 << 16) - 1)]
+    for a, e in cases:
+        assert mont.modexp(a, e) == pow(a, e, N), (a, e)
+    a, b = rng.randrange(N), rng.randrange(N)
+    assert mont.modmul(a, b) == a * b % N
+    assert mont.modmul(N - 1, N - 1) == 1
+    with r_backend("jnp"):
+        ref = RMont(rB, rBp, N)
+        assert ref.modexp(*cases[0]) == mont.modexp(*cases[0])
+        assert ref.modmul(a, b) == mont.modmul(a, b)
+
+
+@pytest.mark.parametrize("n_limbs", [6, 12])
+def test_rns_montgomery_mul_and_approx_match_reference(n_limbs):
+    """``mul`` (exact) and ``mul(approx=True)`` (Kawamura extension) give
+    the reference's residues; the exact product also leaves the domain to
+    x·y mod N."""
+    (B, Bp), (rB, rBp), _ = bases(n_limbs)
+    rng = random.Random(100 + n_limbs)
+    N = moduli(B, Bp, 2, rng)[1]
+    mont, ref = RNSMontgomery(B, Bp, N, device="cpu"), RMont(rB, rBp, N)
+    R = B.M % N
+    for _ in range(3):
+        a, b = rng.randrange(N), rng.randrange(N)
+        x, y = mont.to_dual(a * R % N), mont.to_dual(b * R % N)
+        rx, ry = ref.to_dual(a * R % N), ref.to_dual(b * R % N)
+        with r_backend("jnp"):
+            same_dual(mont.mul(x, y), ref.mul(rx, ry))
+            got, want = mont.mul(x, y, approx=True), ref.mul(rx, ry, approx=True)
+        eq(got.xB, want.xB)
+        eq(got.xBp, want.xBp)
+        out = mont.mul(mont.mul(x, y), mont.to_dual(1))
+        assert mont.from_dual(out) % N == a * b % N
+
+
+def test_rns_montgomery_base_layout_refuses_canonicalization():
+    (B, Bp), _, _ = bases(3)
+    mont = RNSMontgomery(B, Bp, 1000003, layout=Layout.BASE, device="cpu")
+    with pytest.raises(ValueError, match="m_a channel"):
+        mont.modmul(3, 5)
+
+
+# ---------------------------------------------------- the lane's functions
+def _state_np(state):
+    return {k: np.asarray(v) for k, v in state.items()}
+
+
+def test_crypto_fns_match_reference_tick_by_tick():
+    """admit, step, final, modmul, divmod and fp on the same requests give
+    the reference's rows bit for bit, after every call."""
+    S, chunk = 4, 4
+    ctx, rctx = (CryptoContext(n_limbs=4, exp_bits=16),
+                 RContext(n_limbs=4, exp_bits=16))
+    fns, rfns = make_crypto_fns(ctx, chunk), r_make_crypto_fns(rctx, chunk)
+    state = crypto_state_zeros(ctx, S, "cpu")
+    rstate = {k: jnp.zeros(v.shape, v.dtype)
+              for k, v in crypto_state_abstract(rctx, S).items()}
+    rng = random.Random(9)
+    reqs = []
+    for slot in (0, 2, 3):
+        N = moduli(ctx.baseB, ctx.baseBp, 2, rng)[1]
+        reqs.append((slot, N, rng.randrange(N), rng.randrange(1 << 16)))
+
+    def rows(c, a, e):
+        return [ctx.encode_lo(a), ctx.encode_hi(a), c["m2_lo"], c["m2_hi"],
+                c["one_lo"], c["one_hi"], c["neg"], c["n_lo"], c["n_hi"],
+                np.asarray(r_exp_bits_msb(e, 16))]
+
+    def same_state():
+        want = _state_np(rstate)
+        for k, v in state.items():
+            eq(v, want[k])
+
+    for slot, N, a, e in reqs:
+        args = rows(ctx.consts_for(N), a, e)
+        state = fns["admit"](state, slot, *[torch.from_numpy(np.asarray(v))[None]
+                                            for v in args])
+        rstate = rfns["admit"](rstate, jnp.int32(slot),
+                               *[jnp.asarray(v)[None] for v in args])
+        same_state()
+        eq(fns["fp"](state, slot), rfns["fp"](rstate, jnp.int32(slot)))
+    active = np.asarray([1, 0, 1, 1], np.int32)
+    for tick in range(16 // chunk):
+        cursors = np.asarray([chunk * tick, 0, chunk * tick, chunk * tick],
+                             np.int32)
+        state = fns["step"](state, torch.from_numpy(cursors),
+                            torch.from_numpy(active))
+        rstate = rfns["step"](rstate, jnp.asarray(cursors),
+                              jnp.asarray(active))
+        same_state()
+    for slot, N, a, e in reqs:
+        got = fns["final"](state, slot)
+        eq(got, rfns["final"](rstate, jnp.int32(slot)))
+        assert ctx.decode_lo(got[0]) == pow(a, e, N)
+        eq(fns["fp"](state, slot), rfns["fp"](rstate, jnp.int32(slot)))
+    # the one-shots
+    N = moduli(ctx.baseB, ctx.baseBp, 2, rng)[1]
+    c, a, b = ctx.consts_for(N), rng.randrange(N), rng.randrange(N)
+    args = [ctx.encode_lo(a), ctx.encode_hi(a), ctx.encode_lo(b),
+            ctx.encode_hi(b), c["m2_lo"], c["m2_hi"], c["neg"], c["n_hi"],
+            c["n_lo"]]
+    got = fns["modmul"](*[torch.from_numpy(np.asarray(v))[None] for v in args])
+    eq(got, rfns["modmul"](*[jnp.asarray(v)[None] for v in args]))
+    assert ctx.decode_lo(got[0]) == a * b % N
+    M = ctx.baseB.M
+    x, d = rng.randrange(M), rng.randrange(1, M)
+    xp, dp = (ctx.encode_lo(v)[: ctx.n + 1][None] for v in (x, d))
+    q, r = fns["divmod"](torch.from_numpy(xp), torch.from_numpy(dp))
+    rq, rr = rfns["divmod"](jnp.asarray(xp), jnp.asarray(dp))
+    eq(q, rq)
+    eq(r, rr)
+    assert (ctx.decode_lo(q[0]), ctx.decode_lo(r[0])) == divmod(x, d)
+
+
+def test_fingerprint_reduces_in_a_fixed_order():
+    """fp gives the same bits for the same rows, and equals the exact sums
+    where they stay below 2**24."""
+    ctx = CryptoContext(n_limbs=4, exp_bits=16)
+    fns = make_crypto_fns(ctx, 4)
+    g = torch.Generator().manual_seed(0)
+    state = {k: torch.randint(0, 1 << 15, tuple(v.shape), generator=g,
+                              dtype=torch.int32)
+             for k, v in crypto_state_zeros(ctx, 3, "cpu").items()}
+    a, b = fns["fp"](state, 1), fns["fp"](state, torch.tensor(1))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = []
+    for k in ("bits", "neg", "n_lo", "n_hi"):
+        row = state[k][1].to(torch.int64)
+        w = torch.arange(1, row.shape[0] + 1)
+        want += [int(row.sum()), int((row * w).sum())]
+    assert [int(v) for v in a] == want
+
+
+def test_rsa2048_fingerprint_sum_exceeds_f32_and_codec_clip():
+    """The reference's fingerprint comment claims exact f32 sums "for
+    15-bit residues over <= 2**8 channels".  At the RSA-2048 lane width
+    (n_limbs = 138, nch_lo = 139) the index-weighted n_lo sum is bounded by
+    (2**15 - 1)·139·140/2 = 318,822,910: above 2**24, so it is rounded,
+    and above the fingerprint codec's clip, so it can clip.  The port keeps
+    the reference's fingerprint for parity (ROADMAP, queue 3)."""
+    ctx = CryptoContext(n_limbs=138, exp_bits=2048)
+    assert (ctx.n, ctx.nch_lo, ctx.n_hi) == (138, 139, 138)
+    bound = max(m - 1 for m in ctx.lo_targets) * ctx.nch_lo * (ctx.nch_lo + 1) // 2
+    assert bound <= (2 ** 15 - 1) * 139 * 140 // 2 == 318_822_910
+    assert bound > 1 << 24
+    clip = GradCodec.make(world=1, correct=True).clip
+    assert 267_069_708 < clip < 267_069_709
+    assert bound > clip
+    # an n_lo row of N = n_max - 1 shows it: the weighted sum is past 2**24
+    N = ctx.n_max - 1
+    while N % 2 == 0 or math.gcd(N, ctx.baseB.M * ctx.baseBp.M) != 1:
+        N -= 1
+    row = ctx.consts_for(N)["n_lo"].astype(np.int64)
+    assert int((row * np.arange(1, ctx.nch_lo + 1)).sum()) > 1 << 24
+
+
+# ---------------------------------------------------------- the engine
+def _engine(**kw):
+    kw.setdefault("crypto_slots", 4)
+    kw.setdefault("crypto_chunk", 4)
+    kw.setdefault("crypto_ctx", CryptoContext(n_limbs=4, exp_bits=16))
+    return CryptoEngine(device="cpu", **kw)
+
+
+def _oracle(r):
+    return (divmod(r.a, r.b) if r.op == "divmod"
+            else pow(r.a % r.n, r.b, r.n) if r.op == "modexp"
+            else r.a * r.b % r.n)
+
+
+def test_engine_mixed_load_matches_oracle_and_verifies():
+    eng = _engine(rns_verify=True)
+    reqs = t_serve.synth_crypto_requests(
+        14, np.random.default_rng(3), eng.crypto_ctx, arrival_rate=0.5,
+        rid0=100)
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_to_completion()
+    assert sorted(r.rid for r in done) == [r.rid for r in reqs]
+    for r in done:
+        assert r.result == _oracle(r), (r.rid, r.op)
+        assert eng.verify_log[r.rid] is True
+        assert r.t_done is not None and r.t_admit is not None
+    # 5 modexps through 4 lane slots: at least one slot is reused
+    used = [r.slot_index for r in done if r.op == "modexp"]
+    assert len(used) == 5 and set(used) <= {0, 1, 2, 3}
+    drained = eng.drain_completed()
+    assert sorted(r.rid for r in drained) == [r.rid for r in reqs]
+    assert eng.verify_log == {} and len(eng.wire) == 0
+    assert not eng.busy and eng.crypto.completed == []
+
+
+def test_engine_wire_corrupt_detect_and_repair():
+    eng = _engine(rns_verify=True)
+    N = 1000003
+    assert math.gcd(N, eng.crypto_ctx.baseB.M * eng.crypto_ctx.baseBp.M) == 1
+    eng.submit(CryptoRequest(rid=1, op="modexp", a=777, b=4321, n=N))
+    eng.try_admit(0.0)   # slot bound, fingerprint published
+    key = ("crypto", 1)
+    assert eng.wire_ok(key)
+    eng.corrupt_wire(key, channel=0, delta=5)
+    assert not eng.wire_ok(key)               # detected by redundancy
+    rep = eng.repair_wire(key)
+    assert rep["repaired"] == 1 and rep["unrecoverable"] == 0
+    assert eng.wire_ok(key)                   # located and corrected
+    done = eng.run_to_completion()
+    assert done[0].result == pow(777, 4321, N)
+    assert eng.verify_log[1] is True          # retirement re-verified
+
+
+def test_engine_two_slots_all_at_once_match_oracle():
+    """Six requests arriving together on two slots: modexps wait for a
+    free slot while the one-shots run, in FIFO order."""
+    ctx = CryptoContext(n_limbs=4, exp_bits=16)
+    reqs = t_serve.synth_crypto_requests(
+        6, np.random.default_rng(4), ctx, arrival_rate=0.0, rid0=0)
+    eng = _engine(crypto_ctx=ctx, crypto_slots=2)
+    for r in reqs:
+        eng.submit(r)
+    got = {r.rid: r.result for r in eng.run_to_completion()}
+    assert got == {r.rid: _oracle(r) for r in reqs}
+
+
+def test_engine_verify_needs_rns_verify():
+    eng = _engine()
+    with pytest.raises(RuntimeError, match="rns_verify"):
+        eng.wire_ok(("crypto", 0))
+
+
+def test_duplicate_rid_rejected_under_verify():
+    eng = _engine(rns_verify=True)
+    eng.submit(CryptoRequest(rid=8, op="modexp", a=2, b=3, n=1000003))
+    with pytest.raises(ValueError, match="rid 8"):
+        eng.submit(CryptoRequest(rid=8, op="modmul", a=2, b=3, n=1000003))
+
+
+def test_context_and_lane_validation():
+    """The reference's ``test_context_and_lane_validation``, on the port."""
+    ctx = CryptoContext(n_limbs=4, exp_bits=16)
+    with pytest.raises(ValueError, match="unknown crypto op"):
+        ctx.validate(CryptoRequest(rid=0, op="sqrt", a=1, b=1))
+    with pytest.raises(ValueError, match="needs a modulus"):
+        ctx.validate(CryptoRequest(rid=0, op="modexp", a=1, b=1))
+    with pytest.raises(ValueError, match="must lie in"):
+        ctx.validate(CryptoRequest(rid=0, op="modexp", a=1, b=1,
+                                   n=ctx.n_max + 1))
+    with pytest.raises(ValueError, match="coprime"):
+        ctx.validate(CryptoRequest(rid=0, op="modexp", a=1, b=1,
+                                   n=ctx.baseB.moduli[0] * 3))
+    with pytest.raises(ValueError, match="exp_bits"):
+        ctx.validate(CryptoRequest(rid=0, op="modexp", a=1,
+                                   b=1 << ctx.exp_bits, n=1000003))
+    with pytest.raises(ValueError, match="dynamic range"):
+        ctx.validate(CryptoRequest(rid=0, op="divmod", a=ctx.baseB.M, b=1))
+    with pytest.raises(ValueError, match="divide exp_bits"):
+        CryptoLane(1, exp_bits=16, chunk=5)
+    with pytest.raises(ValueError, match="BASE_MA or RRNS"):
+        CryptoContext(n_limbs=3, layout=Layout.BASE)
+
+
+def test_context_matches_reference():
+    for kw in (dict(n_limbs=4, exp_bits=16),
+               dict(n_limbs=5, exp_bits=8, layout="rrns")):
+        t = CryptoContext(**{**kw, "layout": Layout(kw.get("layout", "base_ma"))})
+        r = RContext(**{**kw, "layout": RLayout(kw.get("layout", "base_ma"))})
+        assert t.baseB.moduli == r.baseB.moduli and t.baseBp.moduli == r.baseBp.moduli
+        assert (t.baseB.ma, t.baseBp.ma, t.mb) == (r.baseB.ma, r.baseBp.ma, r.mb)
+        assert t.lo_targets == r.lo_targets and t.n_max == r.n_max
+        assert (t.nch_lo, t.n, t.n_hi) == (r.nch_lo, r.n, r.n_hi)
+
+
+def test_crypto_family_gating():
+    """The reference's ``test_crypto_family_gating``, on the port: the
+    engine serves the crypto family only, and a context without slots is a
+    configuration error."""
+    from repro_torch.serve.crypto import CryptoRequest as Req
+
+    eng = _engine()
+    llm = Req(rid=0, op="modexp", a=2, b=3, n=1000003, family="llm")
+    with pytest.raises(ValueError, match="serve slice"):
+        eng.submit(llm)
+    bad = Req(rid=1, op="modexp", a=2, b=3, n=1000003, family="audio")
+    with pytest.raises(ValueError, match="unknown request family"):
+        eng.submit(bad)
+    with pytest.raises(ValueError, match="crypto_slots"):
+        CryptoEngine(crypto_slots=0, crypto_ctx=CryptoContext(n_limbs=3),
+                     device="cpu")
+    with pytest.raises(ValueError, match="crypto_slots"):
+        CryptoEngine(crypto_slots=0, device="cpu")
+
+
+# ------------------------------------------------------------ the CLI
+def test_synth_crypto_requests_match_reference():
+    from repro.launch.serve import synth_crypto_requests as r_synth
+
+    ctx, rctx = (CryptoContext(n_limbs=5, exp_bits=32),
+                 RContext(n_limbs=5, exp_bits=32))
+    got = t_serve.synth_crypto_requests(4, np.random.default_rng(7), ctx,
+                                        arrival_rate=0.25, rid0=3)
+    want = r_synth(4, np.random.default_rng(7), rctx, arrival_rate=0.25,
+                   rid0=3)
+    key = lambda r: (r.rid, r.op, r.a, r.b, r.n, r.arrival)
+    assert [key(r) for r in got] == [key(r) for r in want]
+
+
+def test_serve_cli_crypto_subprocess():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--families", "crypto", "--crypto-slots", "2", "--crypto-requests",
+         "6", "--crypto-limbs", "3", "--crypto-exp-bits", "8",
+         "--crypto-chunk", "4", "--rns-verify", "--inject-wire-corrupt"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout)
+    assert report["crypto"]["requests"] == 6
+    assert report["crypto"]["oracle_failed"] == 0
+    assert report["crypto"]["oracle_ok"] == 6
+    rns = report["rns"]
+    assert rns["slots_failed"] == 0 and rns["slots_verified"] == 6
+    assert rns["injected_detected"] and rns["injected_reverified"]
+    assert rns["injected_repair"] == {"repaired": 1, "unrecoverable": 0}
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["--families", "llm", "--crypto-slots", "1"], "serve slice"),
+    (["--families", "crypto,audio", "--crypto-slots", "1"], "subset"),
+    (["--crypto-requests", "2"], "crypto-slots"),
+    (["--crypto-slots", "2"], "crypto-requests"),
+])
+def test_serve_cli_refusals(argv, what, capsys):
+    with pytest.raises(SystemExit):
+        t_serve.main(["--device", "cpu", *argv])
+    assert what in capsys.readouterr().err
+
+
+def test_rns_modmul_example_on_cpu():
+    from repro_torch import rns_modmul
+
+    out = rns_modmul.main("cpu", verbose=False)
+    assert out["got"] == out["want"] and out["needs_sub"] is False
+
+
+# ------------------------------------------------------------- doctests
+@pytest.mark.parametrize("name", ["repro_torch.core.montgomery",
+                                  "repro_torch.serve.crypto",
+                                  "repro_torch.serve.serve_step",
+                                  "repro_torch.serve.batcher"])
+def test_port_doctests(name):
+    result = doctest.testmod(importlib.import_module(name), verbose=False)
+    assert result.attempted > 0 and result.failed == 0
+
+
+# ------------------------------------------------- on the card (skip here)
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_limbs,layout", [(3, "base_ma"), (17, "rrns"),
+                                            (64, "base_ma")])
+def test_cuda_mont_kernels_match_plain(card, n_limbs, layout):
+    p = Pair(n_limbs, layout, 300, seed=n_limbs)
+    tables = ops._mont_tables(p.B, p.Bp, p.lo_t, card)
+    tiles = [t.T.contiguous().to(card)
+             for t in map(torch.from_numpy, (*p.rows(p.xs), *p.rows(p.ys)))]
+    neg_t = torch.from_numpy(p.neg).T.contiguous().to(card)
+    nhi_t = torch.from_numpy(p.n_hi).T.contiguous().to(card)
+    for got, want in zip(mont_mul_kernel_call(*tiles, neg_t, nhi_t, *tables),
+                         mont_mul_plain(*tiles, neg_t, nhi_t, *tables)):
+        eq(got, want.cpu())
+    bit = torch.from_numpy(p.bits).to(card)
+    for got, want in zip(
+            mont_ladder_kernel_call(*tiles, bit, neg_t, nhi_t, *tables),
+            mont_ladder_plain(*tiles, bit, neg_t, nhi_t, *tables)):
+        eq(got, want.cpu())
+    torch.cuda.synchronize()
