@@ -9,10 +9,13 @@ prints one JSON object per line:
 1. card      — ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build     — builds the seven CUDA kernels from the six sources in
                ``src/repro_torch/kernels/csrc`` (``nvcc``, one process per
-               source, all started together) with ptxas register and spill
-               lines, and each kernel's static SASS opcode counts
-               (``cuobjdump -sass``; for the templated codec and Montgomery
-               kernels, the instances the main paths run);
+               source, all started together) with the ptxas lines of the
+               instances the main paths run (registers, spills; for the
+               Montgomery kernels both block widths, 8 and 16 columns, with
+               the dynamic shared memory a block takes at RSA-2048 width),
+               and each kernel's static SASS opcode counts (``cuobjdump
+               -sass``; for the templated codec and Montgomery kernels, the
+               instance the main path runs);
 3. parity    — each kernel against its plain torch version on the card, bit
                for bit: mrc, modmul and compare over n in {2, 3, 6, 17, 137},
                bits in {8, 13, 15}, batch in {1, 7, 300, 65537}, int32 and
@@ -59,11 +62,25 @@ prints one JSON object per line:
                ``RNSMontgomery`` modexp/modmul on one RSA-2048 N and the
                ``rns_modmul`` example on the card;
 7. timing    — CUDA-event medians of each kernel and its plain version at
-               the main-path shapes, beside the bound: the largest of bytes
+               the main-path shapes (one launch between two events, the
+               wrapper's host work before the launch included; for the
+               Montgomery kernels and the one-column compare, whose launches
+               are short enough for that work to show, also ten back to
+               back, per launch, as ``ms_back_to_back``), beside the bound: the largest of bytes
                over 3.35 TB/s (H100 SXM data sheet) and, for each pipe
-               (int32, conversion, fp32, load/store), the kernel's
-               instructions on it over that pipe's peak rate;
-8. kernels   — one line listing every ported kernel.
+               (int32, conversion, fp32, load/store, int8 tensor cores), the
+               work on it over that pipe's peak rate.  The Montgomery
+               kernels at 8,192 columns, at 1,024 (the lane's ladder) and
+               on one column (the lane's other products), and the compare
+               kernel on one column at n = 138, the shape of each of a
+               divmod's comparisons;
+8. kernels   — one line listing every ported kernel, its launches summed
+               over the three main paths (slice 1, the codec steps, the
+               crypto lane) and one timing row: slice 1's kernels at the
+               paper's width, the codec's on the gemma3-1b buffer, the
+               Montgomery kernels at the 8,192-column timing shape (the
+               lane runs the ladder on 1,024 columns and its products on
+               one; those rows are in phase 7).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero with no ``ok`` line; so does a host without a CUDA device, or
@@ -90,6 +107,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+# H100 SXM dense int8 tensor-core rate (data sheet), operations per second:
+# the Montgomery kernels' base-extension dots run as u8 products there.
+INT8_TENSOR_OPS_PER_S = 1.979e15
 # Peak instructions per clock per SM for compute capability 9.0, by pipe:
 # the CUDA C++ Programming Guide's arithmetic-throughput table (32-bit
 # integer add/compare/multiply-add 64, conversions between 32-bit integer
@@ -167,6 +187,13 @@ CRYPTO_SWEEP_LIMBS, CRYPTO_RRNS_LIMBS = (2, 3, 8, 17, 64, 138), (8, 138)
 CRYPTO_BATCHES = (1, 7, 300, 4099)
 CRYPTO_TIMING_BATCH = 8192
 CRYPTO_SHAPE = "rsa2048_n138"
+# The Montgomery kernels are also timed at the lane's width (CRYPTO_SLOTS
+# columns: its ladder bits) and on one column (its admits, retirements and
+# modmuls, and RNSMontgomery's ladder), and the compare kernel on one column
+# of the lane's base, the shape of a divmod's Algorithm-1 steps.
+CRYPTO_LANE_SHAPE = "rsa2048_n138_lane"
+CRYPTO_ONE_SHAPE = "rsa2048_n138_one"
+DIVMOD_SHAPE = "divmod_n138"
 ORACLE_CHUNK = 16                  # pow() calls per process-pool task
 
 
@@ -222,40 +249,47 @@ def column_mix(name: str, n: int) -> Counter:
             + SUB_MOD + Counter({"int32": 2, "load/store": 3}))
 
 
+# One step of an MRC triangle, (w_i - a) * inv mod m_i, at the fewest
+# instructions an exact step is known to take (csrc/mont_ladder.cu,
+# mrc_warp): a three-input add, the product, the int->float (I2FP, counted
+# on the int32 pipe as above), one FFMA that rounds the quotient, and the
+# multiply-add that leaves the lazy remainder.
+MRC_LAZY_STEP = Counter({"int32": 4, "fp32": 1})
+
+
 def mont_mix(name: str, n: int, nch_lo: int, n_hi: int) -> Counter:
-    """Instructions by pipe for one column of the Montgomery kernels
-    (csrc/mont_ladder.cu), summed over the lanes of its warp: the modular
-    steps the function needs, not the idle lanes of the warp's triangle or
-    its shuffles.  n base channels of B, nch_lo B-side channels with the
-    redundant ones, n_hi of B'."""
-    step = SUB_MOD + MUL_MOD + Counter({"load/store": 1})    # MRC, inverse load
-    term = MUL_MOD + Counter({"int32": 3, "load/store": 1})  # dot: add, compare,
-    #                                                          subtract; beta load
-    moduli = Counter({"load/store": nch_lo + 2 * n_hi,        # m_lo, m_hi, minv
-                      "int32": nch_lo + n_hi})                # and their 1/m (I2FP)
-    prod = (scaled(MUL_MOD, 2 * n)                            # q
-            + scaled(step, n * (n - 1) // 2) + scaled(term, n * n_hi)
-            + scaled(MUL_MOD, 3 * n_hi)                       # x'y', q'N, t M^-1
-            + scaled(Counter({"int32": 3}), n_hi)             # t: add, correct
-            + scaled(step, n_hi * (n_hi - 1) // 2) + scaled(term, n_hi * nch_lo))
-    if name == "mont_mul":   # x, y (both bases), neg, nhi in; lo, hi out
-        io = 2 * (nch_lo + n_hi) + n + n_hi + nch_lo + n_hi
-        return prod + moduli + Counter({"load/store": io})
-    # ladder: r0, r1, bit, neg, nhi in, four tiles out; two products and
-    # three selects (xor, and, xor) over both bases, the mask (2)
-    io = 2 * (nch_lo + n_hi) + 1 + n + n_hi + 2 * (nch_lo + n_hi)
-    return (scaled(prod, 2) + moduli + Counter({"load/store": io})
-            + Counter({"int32": 9 * (nch_lo + n_hi) + 2}))
-
-
-def mont_bytes(name: str, n: int, nch_lo: int, n_hi: int, B: int) -> int:
-    """Bytes the Montgomery kernels must move: each operand read once, each
-    output written once, and the seven tables once."""
-    tables = 4 * (n * n + nch_lo + n * n_hi + n_hi * n_hi + 2 * n_hi
-                  + n_hi * nch_lo)
+    """The work one column of the Montgomery kernels' function takes, by
+    pipe, whatever the implementation: the two MRC triangles' n(n-1)/2 +
+    n_hi(n_hi-1)/2 modular steps (MRC_LAZY_STEP each); the channel-wise
+    products as f32 Barrett steps (q: 2n; x'y', q'N, t M^-1: 3 n_hi; the
+    add and correction of t); the base-extension dots' n n_hi + n_hi
+    nch_lo terms at the int8 tensor-core rate, four u8 products (8
+    operations) a term, and the exact reduction of each of their n_hi +
+    nch_lo sums (three multiply-high steps and the shifts and adds).  n
+    base channels of B, nch_lo B-side channels with the redundant ones,
+    n_hi of B'."""
+    prod = (scaled(MRC_LAZY_STEP, n * (n - 1) // 2 + n_hi * (n_hi - 1) // 2)
+            + scaled(MUL_MOD, 2 * n + 3 * n_hi)
+            + scaled(Counter({"int32": 3}), n_hi)
+            + Counter({"int8_tensor": 8 * (n * n_hi + n_hi * nch_lo)})
+            + scaled(scaled(MULHI_MOD, 3) + Counter({"int32": 4}),
+                     n_hi + nch_lo))
     if name == "mont_mul":
-        return 4 * B * (2 * (nch_lo + n_hi) + n + n_hi + nch_lo + n_hi) + tables
-    return 4 * B * (4 * (nch_lo + n_hi) + 1 + n + n_hi) + tables
+        return prod
+    # ladder: two products and three selects (xor, and, xor) over both
+    # bases, and the mask (2)
+    return scaled(prod, 2) + Counter({"int32": 9 * (nch_lo + n_hi) + 2})
+
+
+def mont_bytes(name: str, n: int, nch_lo: int, n_hi: int, B: int,
+               image: int) -> int:
+    """Bytes the Montgomery kernels must move: each operand read once (the
+    B-side inputs' n base channels, the only ones the function reads), each
+    output written once, and the table image once."""
+    if name == "mont_mul":
+        return 4 * B * (2 * (n + n_hi) + n + n_hi + nch_lo + n_hi) + image
+    return 4 * B * (2 * (n + n_hi) + 1 + n + n_hi
+                    + 2 * (nch_lo + n_hi)) + image
 
 
 # "/*0070*/  @!P0 IMAD.MOV.U32 R1, ..." -> "IMAD"
@@ -268,10 +302,11 @@ KERNEL_NAMES = ("mrc_kernel", "modmul_kernel", "compare_kernel",
 # The codec kernels are templates on their channel count; the build and
 # SASS lines show the instance the main path runs (4 channels written by
 # the encode, 3 base channels read by the decode), "_Z...ILi4E..." mangled.
-# The Montgomery kernels are templates on the register slots a lane holds,
-# ceil(139 / 32) = 5 at RSA-2048 width.
-MAIN_INSTANCE = {"codec_encode_kernel": 4, "codec_decode_kernel": 3,
-                 "mont_mul_kernel": 5, "mont_ladder_kernel": 5}
+# The Montgomery kernels are templates on the columns a block holds: 8 on
+# the lane's 1,024 columns (the SASS census shows that one), 16 from 2,112
+# columns on (the timing shape).
+MAIN_INSTANCE = {"codec_encode_kernel": (4,), "codec_decode_kernel": (3,),
+                 "mont_mul_kernel": (8, 16), "mont_ladder_kernel": (8, 16)}
 TEMPLATE_ARG = re.compile(r"ILi(\d+)E")
 
 
@@ -292,7 +327,7 @@ def sass_opcodes(library: str) -> dict:
     out = {}
     for block in sass.split("Function : ")[1:]:
         name, arg = kernel_of(block.splitlines()[0])
-        if name is None or arg != MAIN_INSTANCE.get(name):
+        if name is None or arg != MAIN_INSTANCE.get(name, (None,))[0]:
             continue
         ops = re.findall(SASS_OPCODE, block)
         out[name] = dict(Counter(ops).most_common())
@@ -302,20 +337,29 @@ def sass_opcodes(library: str) -> dict:
 
 def ptxas_summary(ptxas: dict) -> dict:
     """The build's ptxas lines per source, for a templated kernel only those
-    of the main path's instance, with the most registers and spill bytes
-    over all instances."""
+    of the main paths' instances, with the registers and spill bytes of
+    each such instance and the most registers and spill bytes over all."""
     out = {}
     for src, lines in ptxas.items():
-        keep, regs, spills, show = [], [], [], True
+        keep, regs, spills, show, inst, label = [], [], [], True, {}, None
         for ln in lines:
             if "Compiling entry function" in ln:
                 name, arg = kernel_of(ln)
-                show = arg is None or arg == MAIN_INSTANCE.get(name)
-            regs += [int(r) for r in re.findall(r"Used (\d+) registers", ln)]
-            spills += [int(b) for b in re.findall(r"(\d+) bytes spill", ln)]
+                show = arg is None or arg in MAIN_INSTANCE.get(name, ())
+                label = name if arg is None else f"{name}<{arg}>"
+            r = [int(v) for v in re.findall(r"Used (\d+) registers", ln)]
+            b = [int(v) for v in re.findall(r"(\d+) bytes spill", ln)]
+            regs += r
+            spills += b
             if show:
                 keep.append(ln)
-        out[src] = {"lines": keep, "max_registers": max(regs, default=None),
+                if r or b:
+                    d = inst.setdefault(label, {"registers": None,
+                                                "spill_bytes": 0})
+                    d["registers"] = r[0] if r else d["registers"]
+                    d["spill_bytes"] += sum(b)
+        out[src] = {"lines": keep, "instances": inst,
+                    "max_registers": max(regs, default=None),
                     "spill_bytes": sum(spills)}
     return out
 
@@ -776,10 +820,12 @@ def crypto_parity(dev, max_err) -> dict:
             ctx = CryptoContext(n_limbs=n_limbs, exp_bits=8, layout=layout)
             tables = ops._mont_tables(ctx.baseB, ctx.baseBp, ctx.lo_targets,
                                       dev)
+            image = ops._mont_image(ctx.baseB, ctx.baseBp, ctx.lo_targets,
+                                    dev)
             for batch in CRYPTO_BATCHES:
                 where = dict(n_limbs=n_limbs, layout=layout.value, batch=batch)
                 cols = crypto_columns(ctx, batch, rng, dev)
-                hold("mont_mul", mont_mul_kernel_call(*cols, *tables),
+                hold("mont_mul", mont_mul_kernel_call(*cols, image),
                      mont_mul_plain(*cols, *tables), where)
                 rows = {"zeros": torch.zeros(batch, dtype=torch.int32,
                                              device=dev),
@@ -789,9 +835,10 @@ def crypto_parity(dev, max_err) -> dict:
                                                device=dev, dtype=torch.int32)}
                 xl, xh, yl, yh, neg, nhi = cols
                 for label, bit in rows.items():
-                    args = (xl, xh, yl, yh, bit, neg, nhi, *tables)
-                    hold("mont_ladder", mont_ladder_kernel_call(*args),
-                         mont_ladder_plain(*args), dict(where, bits=label))
+                    args = (xl, xh, yl, yh, bit, neg, nhi)
+                    hold("mont_ladder", mont_ladder_kernel_call(*args, image),
+                         mont_ladder_plain(*args, *tables),
+                         dict(where, bits=label))
                 cases.append(where)
     torch.cuda.synchronize()
     return {"cases": len(cases), "n_limbs": list(CRYPTO_SWEEP_LIMBS),
@@ -844,20 +891,26 @@ def crypto_main_path(dev) -> dict:
     for r in reqs:
         eng.submit(r)
     # Instrumentation: CUDA events around each tick's ladder advance (the
-    # lane function ``step``: its device time), and the host clock around
-    # each per-request call (modmul, divmod and the retirement end in a host
+    # lane function ``step``: from its first launch's enqueue to its last
+    # kernel's end) and the host clock around the same call (the time the
+    # host takes to enqueue it: the call does not wait for the card; where
+    # it is as long as the events' span, the card waited for the host),
+    # and the host clock around each per-request call (modmul, divmod and the retirement end in a host
     # read of the result, so the clock sees their device work; a bind does
     # not wait for the card).
-    ticks, host = [], {"bind": [], "modmul": [], "divmod": [], "retire": []}
+    ticks, tick_host = [], []
+    host = {"bind": [], "modmul": [], "divmod": [], "retire": []}
     advance = eng._crypto_fns["step"]
     orig = {name: getattr(eng, "_crypto_" + name) for name in host}
 
     def timed_advance(*args):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
         e0.record()
         out = advance(*args)
         e1.record()
+        tick_host.append(time.perf_counter() - t)
         ticks.append((e0, e1))
         return out
 
@@ -945,6 +998,7 @@ def crypto_main_path(dev) -> dict:
             "modexp_per_s": CRYPTO_MODEXPS / seconds,
             "tick_ms_median": statistics.median(tick_ms),
             "tick_ms_total": sum(tick_ms),
+            "tick_host_ms_median": 1e3 * statistics.median(tick_host),
             "host_s": {k: sum(v) for k, v in host.items()},
             "host_ms": {k: {"median": 1e3 * statistics.median(v),
                             "max": 1e3 * max(v), "first": 1e3 * v[0]}
@@ -1032,8 +1086,17 @@ def main() -> int:
     # --------------------------------------------------------- 2. build
     info = build.build()
     build.load()
+    from repro_torch.kernels.mont_ladder import smem_bytes, smem_layout
+    from repro_torch.serve.crypto import CryptoContext
+
+    ctx = CryptoContext(n_limbs=CRYPTO_LIMBS, exp_bits=CRYPTO_EXP_BITS)
+    shape = (ctx.n, ctx.nch_lo, ctx.n_hi)
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"],
           "library": os.path.relpath(info["path"], ROOT), "ptxas": ptxas_summary(info["ptxas"]),
+          "mont_smem_bytes": {"image": smem_layout(*shape)["image"],
+                              "block": {c: smem_bytes(*shape, c)
+                                        for c in (8, 16)},
+                              "shape": CRYPTO_SHAPE},
           "sass_opcodes": sass_opcodes(info["path"])})
 
     # -------------------------------------------------------- 3. parity
@@ -1191,8 +1254,8 @@ def main() -> int:
     paper = make_paper_bases()[0]
     width_run("paper_n137", paper, PAPER_BATCH)
     width_run("quickstart_n8", make_base(8, bits=15), SMALL_BATCH)
-    launches = counts()
-    emit({"phase": "main", "step": "total", "launches": launches})
+    launches = implied(**counts())   # summed over the three main paths
+    emit({"phase": "main", "step": "total", "launches": counts()})
 
     # ------------------------------------ 5. codec: slice 2's main path
     torch.cuda.set_device(dev)
@@ -1203,8 +1266,8 @@ def main() -> int:
         codec_run = codec_main_path(dev, dist.group.WORLD, max_err)
     finally:
         dist.destroy_process_group()
-    launches.update({k: codec_run["launches"][k]
-                     for k in ("codec_encode", "codec_decode")})
+    for k in launches:
+        launches[k] += codec_run["launches"][k]
     emit({"phase": "codec", "step": "total", "model": MODEL_NAME,
           **codec_run})
     emit({"phase": "codec", "step": "replicas", **codec_replicas(dev)})
@@ -1218,13 +1281,17 @@ def main() -> int:
           "max_abs_err": {k: max_err[k] for k in ("mont_mul", "mont_ladder")},
           "exact": True})
     crypto_run = crypto_main_path(dev)
-    launches.update({k: crypto_run["launches"][k]
-                     for k in ("mont_mul", "mont_ladder")})
+    for k in launches:
+        launches[k] += crypto_run["launches"][k]
     emit({"phase": "crypto", "step": "lane", **crypto_run})
     emit({"phase": "crypto", "step": "frontends", **crypto_frontends(dev)})
 
     # -------------------------------------------------------- 7. timing
-    def median_ms(fn, runs=20, warmup=3):
+    def median_ms(fn, runs=20, warmup=3, inner=1):
+        """Median over ``runs`` of the time between two events around
+        ``inner`` calls, per call.  With ``inner`` = 1 the time includes the
+        host work of the call before its launch (the card waits for it);
+        back to back, that work overlaps the previous launch."""
         for _ in range(warmup):
             fn()
         times = []
@@ -1232,10 +1299,11 @@ def main() -> int:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            fn()
+            for _ in range(inner):
+                fn()
             e1.record()
             e1.synchronize()
-            times.append(e0.elapsed_time(e1))
+            times.append(e0.elapsed_time(e1) / inner)
         return statistics.median(times)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1246,9 +1314,10 @@ def main() -> int:
 
     def bound(nbytes, mix, units):
         """Least time in ms: bytes over the memory rate, or the busiest
-        pipe's instructions over its peak; and which one sets it."""
+        pipe's work over its peak; and which one sets it."""
         ms = {pipe: 1e3 * units * count
-              / (PIPE_PER_SM_CLOCK[pipe] * sms * clock_mhz * 1e6)
+              / (INT8_TENSOR_OPS_PER_S if pipe == "int8_tensor" else
+                 PIPE_PER_SM_CLOCK[pipe] * sms * clock_mhz * 1e6)
               for pipe, count in mix.items()}
         ms["bytes"] = 1e3 * nbytes / HBM_BYTES_PER_S
         pipe = max(ms, key=ms.get)
@@ -1333,52 +1402,94 @@ def main() -> int:
         timings[(name, MODEL_NAME)] = row
     del flat, wire
 
-    # the Montgomery kernels at RSA-2048 width on CRYPTO_TIMING_BATCH
-    # columns: 512 distinct columns tiled (the kernels run in constant time,
-    # whatever the data)
+    # the Montgomery kernels at RSA-2048 width on CRYPTO_TIMING_BATCH and
+    # on CRYPTO_SLOTS columns: 512 distinct columns tiled (the kernels run
+    # in constant time, whatever the data), each output held against the
+    # plain version once
     from repro_torch.kernels.mont_ladder import (mont_ladder_kernel_call,
                                                  mont_ladder_plain,
                                                  mont_mul_kernel_call,
                                                  mont_mul_plain)
-    from repro_torch.serve.crypto import CryptoContext
 
     ctx = CryptoContext(n_limbs=CRYPTO_LIMBS, exp_bits=CRYPTO_EXP_BITS)
-    reps = CRYPTO_TIMING_BATCH // 512
-    cols = [c.repeat(1, reps).contiguous()
-            for c in crypto_columns(ctx, 512, random.Random(8192), dev)]
-    bit = torch.randint(0, 2, (CRYPTO_TIMING_BATCH,), generator=gen,
-                        device=dev, dtype=torch.int32)
     tables = ops._mont_tables(ctx.baseB, ctx.baseBp, ctx.lo_targets, dev)
-    xl, xh, yl, yh, neg, nhi = cols
-    lad = (xl, xh, yl, yh, bit, neg, nhi, *tables)
+    image = ops._mont_image(ctx.baseB, ctx.baseBp, ctx.lo_targets, dev)
+    base_cols = crypto_columns(ctx, 512, random.Random(8192), dev)
     shape = (ctx.n, ctx.nch_lo, ctx.n_hi)
-    mont_work = {
-        "mont_mul": (lambda: mont_mul_kernel_call(*cols, *tables),
-                     lambda: mont_mul_plain(*cols, *tables)),
-        "mont_ladder": (lambda: mont_ladder_kernel_call(*lad),
-                        lambda: mont_ladder_plain(*lad)),
-    }
-    per_call = {"mont_mul": 1, "mont_ladder": 1}
-    for name, (kern, plain) in mont_work.items():
-        ms = median_ms(kern)
-        plain_ms = median_ms(plain, runs=5, warmup=1)
-        mix = mont_mix(name, *shape)
-        nbytes = mont_bytes(name, *shape, CRYPTO_TIMING_BATCH)
-        bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix,
-                                                  CRYPTO_TIMING_BATCH)
-        row = {"phase": "timing", "kernel": name, "shape": CRYPTO_SHAPE,
-               "n": ctx.n, "nch_lo": ctx.nch_lo, "n_hi": ctx.n_hi,
-               "batch": CRYPTO_TIMING_BATCH, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_pipe": pipe, "bound_share": bound_ms / ms,
-               "pipe_ms": pipe_ms, "bytes": nbytes,
-               "instructions": {p: CRYPTO_TIMING_BATCH * c
-                                for p, c in mix.items()},
-               "sms": sms, "clock_max_mhz": clock_mhz,
-               "launches_per_call": per_call[name], "card": card}
-        emit(row)
-        timings[(name, CRYPTO_SHAPE)] = row
-    del cols, lad
+    for label, batch in ((CRYPTO_SHAPE, CRYPTO_TIMING_BATCH),
+                         (CRYPTO_LANE_SHAPE, CRYPTO_SLOTS),
+                         (CRYPTO_ONE_SHAPE, 1)):
+        cols = [c.repeat(1, -(-batch // 512))[:, :batch].contiguous()
+                for c in base_cols]
+        bit = torch.randint(0, 2, (batch,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        xl, xh, yl, yh, neg, nhi = cols
+        lad = (xl, xh, yl, yh, bit, neg, nhi)
+        mont_work = {
+            "mont_mul": (lambda: mont_mul_kernel_call(*cols, image),
+                         lambda: mont_mul_plain(*cols, *tables)),
+            "mont_ladder": (lambda: mont_ladder_kernel_call(*lad, image),
+                            lambda: mont_ladder_plain(*lad, *tables)),
+        }
+        for name, (kern, plain) in mont_work.items():
+            for g, w in zip(kern(), plain()):
+                err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                max_err[name] = max(max_err[name], err)
+                require(err == 0, f"{name} kernel disagrees with its plain "
+                        f"version at {label}")
+            ms = median_ms(kern)
+            ms_back_to_back = median_ms(kern, inner=10)
+            plain_ms = median_ms(plain, runs=5, warmup=1)
+            mix = mont_mix(name, *shape)
+            nbytes = mont_bytes(name, *shape, batch, image.numel())
+            bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, batch)
+            row = {"phase": "timing", "kernel": name, "shape": label,
+                   "n": ctx.n, "nch_lo": ctx.nch_lo, "n_hi": ctx.n_hi,
+                   "batch": batch, "ms": ms,
+                   "ms_back_to_back": ms_back_to_back, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_pipe": pipe, "bound_share": bound_ms / ms,
+                   "pipe_ms": pipe_ms, "bytes": nbytes,
+                   "instructions": {p: batch * c for p, c in mix.items()},
+                   "sms": sms, "clock_max_mhz": clock_mhz,
+                   "launches_per_call": 1, "card": card}
+            emit(row)
+            timings[(name, label)] = row
+        del cols, lad
+
+    # the compare kernel on one column of the lane's base (n = 138 and m_a):
+    # each of a divmod's Algorithm-1 comparisons is one such launch
+    base = ctx.baseB
+    inv = base.tensor("inv_tri_np", dev, torch.int32)
+    m = base.tensor("moduli_np", dev, torch.int32)
+    betas = base.tensor("betas_ma_np", dev, torch.int32)
+    with backend("torch"):
+        lhs, rhs = (RnsArray.from_parts(base, residues(base, (1,)),
+                                        device=dev).normalize(Layout.BASE_MA)
+                    for _ in range(2))
+    t1, t2 = tiles(lhs.x), tiles(rhs.x)
+    a1 = lhs.xa.to(torch.int32).contiguous()
+    a2 = rhs.xa.to(torch.int32).contiguous()
+    args = (t1, a1, t2, a2, inv, m, betas, base.ma)
+    hold("compare", compare_kernel_call(*args), compare_plain(*args),
+         DIVMOD_SHAPE)
+    ms = median_ms(lambda: compare_kernel_call(*args))
+    ms_back_to_back = median_ms(lambda: compare_kernel_call(*args), inner=10)
+    plain_ms = median_ms(lambda: compare_plain(*args), runs=5, warmup=1)
+    n = base.n
+    mix = column_mix("compare", n)
+    nbytes = 8 * (n + 1) + 4 + 4 * n * (n + 2)
+    bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, 1)
+    row = {"phase": "timing", "kernel": "compare", "shape": DIVMOD_SHAPE,
+           "n": n, "batch": 1, "ms": ms, "ms_back_to_back": ms_back_to_back,
+           "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
+           "bound_share": bound_ms / ms, "pipe_ms": pipe_ms, "bytes": nbytes,
+           "instructions": dict(mix), "sms": sms, "clock_max_mhz": clock_mhz,
+           "launches_per_call": 1,
+           "launches_per_divmod": 2 * base.M.bit_length() + 1, "card": card}
+    emit(row)
+    timings[("compare", DIVMOD_SHAPE)] = row
 
     # ------------------------------------------------------- 8. kernels
     replaces = {"mrc": "src/repro/kernels/mrc.py:33",

@@ -39,5 +39,6 @@ from .montgomery import (  # noqa: F401
     DualRep,
     mont_mul,
     ladder_step,
+    ladder_steps,
     mont_consts,
 )

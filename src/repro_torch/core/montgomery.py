@@ -59,7 +59,7 @@ from .extend import extend_kawamura, extend_mrc
 from .mrc import mrc
 
 __all__ = ["DualRep", "RNSMontgomery", "mont_mul", "ladder_step",
-           "mont_consts", "minv_residues", "exp_bits_msb"]
+           "ladder_steps", "mont_consts", "minv_residues", "exp_bits_msb"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,6 +238,22 @@ def ladder_step(r0: DualRep, r1: DualRep, bit, neg, n_hi):
     sq = _sel(bit0, r0, r1)
     s = _mont_mul_torch(sq, sq, neg, n_hi)
     return _sel(bit0, s, t), _sel(bit0, t, s)
+
+
+def ladder_steps(r0: DualRep, r1: DualRep, bits, neg, n_hi):
+    """``bits.shape[-1]`` ladder bits in a row: ``ladder_step`` on
+    ``bits[..., i]`` for i = 0, 1, ...  On the kernels' route each bit is
+    still one launch, but the operands stay in the kernels' channel-major
+    tiles from one launch to the next (``kernels.ops.mont_ladder_steps_op``),
+    so the layout and table work is done once, not once a bit."""
+    if _on_kernels(r0):
+        from ..kernels.ops import mont_ladder_steps_op
+
+        return mont_ladder_steps_op(r0, r1, bits, neg, n_hi)
+    bits = torch.as_tensor(bits, device=r0.lo.device)
+    for i in range(bits.shape[-1]):
+        r0, r1 = ladder_step(r0, r1, bits[..., i], neg, n_hi)
+    return r0, r1
 
 
 # ------------------------------------------------------------ the frontend

@@ -44,12 +44,12 @@ _SIGNATURES = {
     "rns_codec_encode": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _L, _P],
     # x, out, host m / inv / half, n, inv_scale, B, stream
     "rns_codec_decode": [_P, _P, _P, _P, _P, _I, _F, _L, _P],
-    # x lo/hi, y lo/hi, neg, nhi, out lo/hi, 7 tables, n, nch_lo, n_hi, B,
-    # stream
-    "rns_mont_mul": [_P] * 15 + [_I, _I, _I, _L, _P],
-    # r0 lo/hi, r1 lo/hi, bit, neg, nhi, 4 outs, 7 tables, n, nch_lo, n_hi,
+    # x lo/hi, y lo/hi, neg, nhi, out lo/hi, table image, host layout
+    # (mont_ladder.block_layout), B, stream
+    "rns_mont_mul": [_P] * 10 + [_L, _P],
+    # r0 lo/hi, r1 lo/hi, bit, neg, nhi, 4 outs, table image, host layout,
     # B, stream
-    "rns_mont_ladder": [_P] * 18 + [_I, _I, _I, _L, _P],
+    "rns_mont_ladder": [_P] * 13 + [_L, _P],
 }
 
 

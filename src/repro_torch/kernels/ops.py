@@ -34,13 +34,13 @@ from .codec_decode import codec_decode_kernel_call, codec_decode_plain
 from .codec_encode import codec_encode_kernel_call, codec_encode_plain
 from .modmul import modmul_kernel_call, modmul_plain
 from .mont_ladder import (mont_ladder_kernel_call, mont_ladder_plain,
-                          mont_mul_kernel_call, mont_mul_plain)
+                          mont_mul_kernel_call, mont_mul_plain, pack_image)
 from .mrc import mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
 
 __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
            "codec_decode_op", "mont_mul_op", "mont_ladder_op",
-           "reset_launches"]
+           "mont_ladder_steps_op", "reset_launches"]
 
 
 def _on_card(t) -> bool:
@@ -261,6 +261,16 @@ def _mont_tables(baseB: RNSBase, baseBp: RNSBase,
                  for t in _mont_tables_np(baseB, baseBp, lo_targets))
 
 
+@functools.lru_cache(maxsize=None)
+def _mont_image(baseB: RNSBase, baseBp: RNSBase,
+                lo_targets: tuple[int, ...], device: torch.device):
+    """The kernels' shared-memory image of ``_mont_tables_np``
+    (``mont_ladder.pack_image``) as a uint8 tensor on ``device``, uploaded
+    once."""
+    img = pack_image(*_mont_tables_np(baseB, baseBp, lo_targets))
+    return torch.from_numpy(img).to(device)
+
+
 def _mont_prep(d, lead):
     """DualRep -> channel-major (nch_lo, B) and (n_hi, B) int32 tiles of
     its value broadcast to the batch shape ``lead``."""
@@ -285,14 +295,16 @@ def _mont_wrap(x, out_lo, out_hi, lead):
 
 
 def _mont_setup(x, operands, neg, n_hi):
-    """Tables, the per-``N`` rows as tensors on ``x``'s device, and the
-    broadcast batch shape of ``operands`` (DualReps or bit tensors) and the
-    rows — one call can mix moduli N across columns."""
+    """Tables (the kernels' image on the card, the seven tables of the plain
+    versions on the CPU), the per-``N`` rows as tensors on ``x``'s device,
+    and the broadcast batch shape of ``operands`` (DualReps or bit tensors)
+    and the rows — one call can mix moduli N across columns."""
     _check_bits(x.lo.base)
     _check_bits(x.hi.base)
     dev = x.lo.device
     lo_targets = tuple(int(m) for m in x.lo.channel_moduli)
-    tables = _mont_tables(x.lo.base, x.hi.base, lo_targets, dev)
+    make = _mont_image if dev.type == "cuda" else _mont_tables
+    tables = make(x.lo.base, x.hi.base, lo_targets, dev)
     neg = torch.as_tensor(neg, device=dev)
     n_hi = torch.as_tensor(n_hi, device=dev)
     shapes = [o.lo.shape if hasattr(o, "lo") else o.shape for o in operands]
@@ -316,7 +328,7 @@ def mont_mul_op(x, y, neg, n_hi):
     neg_t, nhi_t = _mont_consts_prep(x, neg, n_hi, lead)
     if _on_card(xlo):
         out_lo, out_hi = mont_mul_kernel_call(xlo, xhi, ylo, yhi, neg_t,
-                                              nhi_t, *tables)
+                                              nhi_t, tables)
         mont_mul_op.launches += 1
     else:
         out_lo, out_hi = mont_mul_plain(xlo, xhi, ylo, yhi, neg_t, nhi_t,
@@ -328,19 +340,34 @@ def mont_ladder_op(r0, r1, bit, neg, n_hi):
     """One Montgomery-ladder bit — two products and the branchless select
     — in a single kernel launch.  Returns the updated ``(r0, r1)`` pair."""
     bit = torch.as_tensor(bit, device=r0.lo.device)
-    tables, neg, n_hi, lead = _mont_setup(r0, (r0, r1, bit), neg, n_hi)
+    return mont_ladder_steps_op(r0, r1, bit[..., None], neg, n_hi)
+
+
+def mont_ladder_steps_op(r0, r1, bits, neg, n_hi):
+    """``bits.shape[-1]`` Montgomery-ladder bits in a row, ``bits: (...,
+    k)`` with the batch shape leading: ``k`` ladder-kernel launches, one a
+    bit (counted on ``mont_ladder_op.launches``), with the operands kept in
+    the kernels' channel-major tiles between them — the tables, transposes
+    and per-``N`` rows are prepared once.  Bitwise equal to ``k`` calls of
+    ``mont_ladder_op``; returns the final ``(r0, r1)``."""
+    bits = torch.as_tensor(bits, device=r0.lo.device)
+    tables, neg, n_hi, lead = _mont_setup(r0, (r0, r1, bits[..., 0]), neg,
+                                          n_hi)
     r0lo, r0hi = _mont_prep(r0, lead)
     r1lo, r1hi = _mont_prep(r1, lead)
     neg_t, nhi_t = _mont_consts_prep(r0, neg, n_hi, lead)
-    bit_t = bit.expand(lead).reshape(-1).to(torch.int32).contiguous()
-    args = (r0lo, r0hi, r1lo, r1hi, bit_t, neg_t, nhi_t, *tables)
-    if _on_card(r0lo):
-        o0lo, o0hi, o1lo, o1hi = mont_ladder_kernel_call(*args)
-        mont_ladder_op.launches += 1
-    else:
-        o0lo, o0hi, o1lo, o1hi = mont_ladder_plain(*args)
-    return (_mont_wrap(r0, o0lo, o0hi, lead),
-            _mont_wrap(r0, o1lo, o1hi, lead))
+    k = bits.shape[-1]
+    bit_t = bits.expand(*lead, k).reshape(-1, k).T.to(torch.int32).contiguous()
+    on_card = _on_card(r0lo)
+    for i in range(k):
+        args = (r0lo, r0hi, r1lo, r1hi, bit_t[i], neg_t, nhi_t)
+        if on_card:
+            r0lo, r0hi, r1lo, r1hi = mont_ladder_kernel_call(*args, tables)
+            mont_ladder_op.launches += 1
+        else:
+            r0lo, r0hi, r1lo, r1hi = mont_ladder_plain(*args, *tables)
+    return (_mont_wrap(r0, r0lo, r0hi, lead),
+            _mont_wrap(r0, r1lo, r1hi, lead))
 
 
 def reset_launches() -> dict:

@@ -59,7 +59,7 @@ from ..core.montgomery import (
     DualRep,
     _channel_targets,
     exp_bits_msb,
-    ladder_step,
+    ladder_steps,
     mont_consts,
     mont_mul,
 )
@@ -247,7 +247,7 @@ def make_crypto_fns(ctx: CryptoContext, chunk: int) -> dict:
     argument keeps a fixed shape (slot ids, cursors and active masks are
     data); the route (plain torch or the CUDA kernels) follows the state's
     device through ``core.dispatch.resolve_backend`` inside
-    ``mont_mul``/``ladder_step`` and the comparisons."""
+    ``mont_mul``/``ladder_steps`` and the comparisons."""
     B, Bp = ctx.baseB, ctx.baseBp
     lo = lambda p: RnsArray.from_packed(B, p, mb=ctx.mb, device=p.device)
     hi = lambda p: RnsArray.from_packed(Bp, p, device=p.device)
@@ -297,9 +297,7 @@ def make_crypto_fns(ctx: CryptoContext, chunk: int) -> dict:
         bits = torch.gather(state["bits"], 1, cols)             # (S, chunk)
         r0 = dual(state["r0_lo"], state["r0_hi"])
         r1 = dual(state["r1_lo"], state["r1_hi"])
-        for i in range(chunk):
-            r0, r1 = ladder_step(r0, r1, bits[:, i],
-                                 state["neg"], state["n_hi"])
+        r0, r1 = ladder_steps(r0, r1, bits, state["neg"], state["n_hi"])
         keep = active[:, None].to(torch.bool)
         sel = lambda new, old: torch.where(keep, new.to(old.dtype), old)
         return {**state,

@@ -55,6 +55,7 @@ from repro_torch.core.montgomery import (
     RNSMontgomery,
     exp_bits_msb,
     ladder_step,
+    ladder_steps,
     minv_residues,
     mont_consts,
     mont_mul,
@@ -62,11 +63,20 @@ from repro_torch.core.montgomery import (
 from repro_torch.dist.grad_codec import GradCodec
 from repro_torch.kernels import ops
 from repro_torch.kernels.mont_ladder import (
+    LAYOUT_FIELDS,
     MAX_CHANNELS,
+    MAX_SMEM,
+    _dot_rows,
+    _layout_arg,
+    block_layout,
+    dot_limbs,
     mont_ladder_kernel_call,
     mont_ladder_plain,
     mont_mul_kernel_call,
     mont_mul_plain,
+    pack_image,
+    smem_bytes,
+    smem_layout,
 )
 from repro_torch.launch import serve as t_serve
 from repro_torch.serve.batcher import CryptoEngine
@@ -222,6 +232,205 @@ def test_mont_tables_match_reference(layout, n_limbs):
         eq(t, w)
 
 
+def _image_sections(img, n, nch_lo, n_hi):
+    """The kernels' image cut into its sections (smem_layout)."""
+    L = smem_layout(n, nch_lo, n_hi)
+    i32 = lambda off, cnt: img[off : off + 4 * cnt].view(np.int32)
+    u32 = lambda off, cnt: img[off : off + 4 * cnt].view(np.uint32)
+    u16 = lambda off, cnt: img[off : off + 2 * cnt].view(np.uint16)
+    planes = lambda off, nt, st: img[off : off + 2 * nt * st].reshape(2, nt, st)
+    return L, {
+        "m_lo": i32(L["m_lo"], L["nt2"]), "mu_lo": u32(L["mu_lo"], L["nt2"]),
+        "m_hi": i32(L["m_hi"], L["nt1"]), "mu_hi": u32(L["mu_hi"], L["nt1"]),
+        "minv": i32(L["minv"], L["nt1"]),
+        "tri_lo": u16(L["tri_lo"], n * (n - 1) // 2),
+        "tri_hi": u16(L["tri_hi"], n_hi * (n_hi - 1) // 2),
+        "b1": planes(L["b1"], L["nt1"], L["s1"]),
+        "b2": planes(L["b2"], L["nt2"], L["s2"]),
+    }
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n_limbs", [2, 6, 17])
+def test_mont_image_matches_reference(layout, n_limbs):
+    """The kernels' shared-memory image, as ``ops._mont_image`` builds it,
+    holds the reference's tables: the moduli with floor(2**32 / m) and
+    M^{-1}, the triangles' upper halves (``inv_tri_np``, row by row) as
+    16-bit words, and ``betas_for`` one row per target split into byte
+    planes — zero wherever the MMA tiles pad, modulus 1 on padded
+    targets."""
+    (B, Bp), (rB, rBp), spare = bases(n_limbs)
+    lo_t = tuple(B.moduli) + (B.ma,) + ((spare,) if layout == "rrns" else ())
+    hi_t = tuple(Bp.moduli)
+    n, nch_lo, n_hi = B.n, len(lo_t), Bp.n
+    img = ops._mont_image(B, Bp, lo_t, torch.device("cpu"))
+    assert img.dtype == torch.uint8 and img.is_contiguous()
+    L, sec = _image_sections(img.numpy(), n, nch_lo, n_hi)
+    assert img.numel() == L["image"] and L["image"] % 16 == 0
+    for side, targets, nt in (("lo", lo_t, L["nt2"]), ("hi", hi_t, L["nt1"])):
+        m = np.asarray(targets + (1,) * (nt - len(targets)), np.int64)
+        eq(sec["m_" + side], m)
+        eq(sec["mu_" + side], ((1 << 32) // m) & 0xFFFFFFFF)
+    eq(sec["minv"][:n_hi], r_minv_residues(rB, hi_t))
+    eq(sec["minv"][n_hi:], 0)
+    for key, rb in (("tri_lo", rB), ("tri_hi", rBp)):
+        tri = np.asarray(rb.inv_tri_np)
+        eq(sec[key], tri[np.triu_indices(tri.shape[0], k=1)])
+    for key, rb, targets, k in (("b1", rB, hi_t, n), ("b2", rBp, lo_t, n_hi)):
+        betas = np.asarray(rb.betas_for(targets), np.int64)      # (T, k)
+        lo, hi = sec[key]
+        eq(lo[: len(targets), :k], betas & 0xFF)
+        eq(hi[: len(targets), :k], betas >> 8)
+        for plane in (lo, hi):
+            assert not plane[len(targets):].any() and not plane[:, k:].any()
+    # 16-bit halves of a 15-bit table lose nothing
+    assert max(sec["tri_lo"].max(initial=0), sec["tri_hi"].max(initial=0)) < 1 << 15
+
+
+@pytest.mark.parametrize("n,nch_lo,n_hi", [(1, 2, 1), (138, 139, 138),
+                                           (138, 140, 138), (160, 160, 160)])
+def test_mont_smem_fits_a_block(n, nch_lo, n_hi):
+    """Every shape the kernels take fits a 16-column block's shared memory
+    (the launch refuses one that does not); the sections follow each other
+    in order (an empty triangle at n = 1 takes no bytes), 16-byte aligned
+    for the block's cp.async copy."""
+    L = smem_layout(n, nch_lo, n_hi)
+    assert smem_bytes(n, nch_lo, n_hi, 16) <= MAX_SMEM
+    order = ["m_lo", "mu_lo", "m_hi", "mu_hi", "minv", "tri_lo", "tri_hi",
+             "b1", "b2", "image"]
+    assert all(L[a] <= L[b] for a, b in zip(order, order[1:]))
+    assert L["m_lo"] < L["b1"] < L["b2"] < L["image"]
+    assert all(L[k] % 16 == 0 for k in order)
+
+
+@pytest.mark.parametrize("cols", [8, 16])
+@pytest.mark.parametrize("n,nch_lo,n_hi", [(1, 2, 1), (138, 139, 138),
+                                           (160, 160, 160)])
+def test_mont_block_layout_is_what_the_kernels_take(n, nch_lo, n_hi, cols):
+    """The launch's layout argument carries ``block_layout`` field by field
+    in the order of the kernels' ``Layout`` struct (read from the source:
+    the kernels compute no offset of their own), and a block's scratch —
+    digit planes, residue tile, output tile — follows the image without
+    overlap."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "kernels" / "csrc" / "mont_ladder.cu").read_text()
+    body = src[src.index("struct Layout {"):]
+    body = body[: body.index("};")]
+    decls = [ln.split("//")[0] for ln in body.splitlines()[1:]]
+    fields = [f.strip() for d in decls if d.strip()
+              for f in d.strip().removeprefix("int ").rstrip(";").split(",")]
+    assert tuple(fields) == LAYOUT_FIELDS
+    assert f"kLayoutFields = {len(LAYOUT_FIELDS)};" in src
+    L = block_layout(n, nch_lo, n_hi, cols)
+    assert list(_layout_arg(n, nch_lo, n_hi, cols)) == [L[f] for f in
+                                                       LAYOUT_FIELDS]
+    assert L["cols"] == cols and L["image"] == smem_layout(n, nch_lo,
+                                                           n_hi)["image"]
+    assert L["dig"] == L["image"] and L["res"] == L["dig"] + 2 * 16 * L["sd"]
+    assert L["io"] == L["res"] + 4 * cols * L["rs"]
+    assert L["smem"] == L["io"] + 4 * L["io_rows"] * (cols + 1)
+    assert L["smem"] == smem_bytes(n, nch_lo, n_hi, cols) <= MAX_SMEM
+    assert L["rs"] >= max(L["nt1"], L["nt2"]) and L["sd"] >= max(L["k1"],
+                                                                 L["k2"])
+
+
+def _planes(img, n, nch_lo, n_hi, key, targets, k):
+    L, sec = _image_sections(img, n, nch_lo, n_hi)
+    lo, hi = sec[key]
+    return (torch.from_numpy(lo[:targets, :k].copy()),
+            torch.from_numpy(hi[:targets, :k].copy()))
+
+
+@pytest.mark.parametrize("digits", ["worst", "random"])
+@pytest.mark.parametrize("n_limbs", [3, 138])
+def test_dot_limbs_equals_dot_rows(n_limbs, digits):
+    """The kernels' tensor-core dot — u8 limb products summed exactly, one
+    exact reduction — equals the term-by-term Barrett dot ``_dot_rows`` bit
+    for bit, for both extensions (B -> B' and B' -> B with the redundant
+    channels), with every digit at m_j - 1 and with random digits."""
+    (B, Bp), _, spare = bases(n_limbs)
+    lo_t = tuple(B.moduli) + (B.ma, spare)
+    tables = ops._mont_tables_np(B, Bp, lo_t)
+    img = pack_image(*tables)
+    n, nch_lo, n_hi = B.n, len(lo_t), Bp.n
+    rng = np.random.default_rng(n_limbs)
+    for key, src, betas, targets in (("b1", B.moduli, tables[2], Bp.moduli),
+                                     ("b2", Bp.moduli, tables[5], lo_t)):
+        m_src = np.asarray(src, np.int64)[:, None]
+        d = (np.broadcast_to(m_src - 1, (len(src), 64)) if digits == "worst"
+             else rng.integers(0, 1 << 40, (len(src), 64)) % m_src)
+        d = torch.from_numpy(np.ascontiguousarray(d, np.int32))
+        m = torch.tensor(targets, dtype=torch.int32)
+        lo, hi = _planes(img, n, nch_lo, n_hi, key, len(targets), len(src))
+        eq(dot_limbs(d, lo, hi, m), _dot_rows(d, torch.from_numpy(betas), m))
+
+
+def test_dot_limb_sums_fit_s32_at_max_channels():
+    """The bound the kernels' s32 accumulators rest on: at MAX_CHANNELS
+    digits and table entries of 15 bits, every limb sum is below 2**24."""
+    d = torch.full((MAX_CHANNELS, 1), (1 << 15) - 1, dtype=torch.int64)
+    b = torch.full((1, MAX_CHANNELS), (1 << 15) - 1, dtype=torch.int64)
+    limbs = lambda x: (x & 0xFF, x >> 8)
+    sums = [bl @ dl for bl in limbs(b) for dl in limbs(d)]
+    assert max(int(s.max()) for s in sums) < 1 << 24
+    m = torch.tensor([32749], dtype=torch.int32)
+    got = dot_limbs(d.to(torch.int32), *(p.to(torch.uint8) for p in limbs(b)),
+                    m)
+    assert int(got) == (MAX_CHANNELS * ((1 << 15) - 1) ** 2) % 32749
+
+
+def _mrc_lazy(w, inv, m):
+    """The kernels' MRC triangle in numpy, step for step: each channel kept
+    as z = 0x4B400000 m - r (mod 2**32) with r in (-m, m); a step's
+    quotient the integer nearest t_f * (1/m)_f (what the FFMA with
+    1.5 * 2**23 rounds to: the f32 product of two f32 values is exact in
+    f64); only the broadcast digit made canonical."""
+    w = np.asarray(w, np.int64)
+    m64 = np.asarray(m, np.int64)[:, None]
+    rc = (np.float32(1) / np.asarray(m, np.float32)).astype(np.float64)[:, None]
+    c = (0x4B400000 * m64) & 0xFFFFFFFF
+    z = (c - w) & 0xFFFFFFFF
+    signed = lambda u: np.where(u >= 1 << 31, u - (1 << 32), u)
+    for j in range(w.shape[0] - 1):
+        a = signed((c[j] - z[j]) & 0xFFFFFFFF)
+        a = a + np.where(a < 0, m64[j], 0)
+        i = slice(j + 1, None)
+        d = signed((c[i] - z[i] - a) & 0xFFFFFFFF)
+        t = d * np.asarray(inv, np.int64)[j, i][:, None]
+        assert (np.abs(t) < 1 << 31).all()
+        q = np.rint(t.astype(np.float32).astype(np.float64) * rc[i])
+        assert (np.abs(q) < 1 << 22).all()
+        r = t - q.astype(np.int64) * m64[i]
+        assert (np.abs(r) < m64[i]).all() and ((r - t) % m64[i] == 0).all()
+        z[i] = (c[i] - r) & 0xFFFFFFFF
+    r = signed((c - z) & 0xFFFFFFFF)
+    return r + np.where(r < 0, m64, 0)
+
+
+@pytest.mark.parametrize("values", ["worst", "zero", "random"])
+@pytest.mark.parametrize("n_limbs", [3, 138])
+def test_kernels_lazy_mrc_equals_mrc_rows(n_limbs, values):
+    """The kernels' MRC arithmetic (one FFMA-rounded quotient a step, no
+    correction until the digit is broadcast) gives the digits of the plain
+    triangle ``mrc_rows`` bit for bit, on both bases of the RSA-2048 pair
+    and a small one, with residues at m - 1, at 0 and random; every step's
+    remainder stays in (-m, m)."""
+    from repro_torch.kernels.common import mrc_rows
+
+    (B, Bp), _, _ = bases(n_limbs)
+    rng = np.random.default_rng(7)
+    for base in (B, Bp):
+        m = np.asarray(base.moduli, np.int64)[:, None]
+        w = {"worst": np.broadcast_to(m - 1, (base.n, 32)),
+             "zero": np.zeros((base.n, 32), np.int64),
+             "random": rng.integers(0, 1 << 40, (base.n, 32)) % m}[values]
+        inv = np.asarray(base.inv_tri_np, np.int64)
+        want = mrc_rows(torch.from_numpy(np.ascontiguousarray(w, np.int32)),
+                        torch.from_numpy(inv.astype(np.int32)),
+                        torch.tensor(base.moduli, dtype=torch.int32))
+        eq(_mrc_lazy(w, inv, base.moduli), want)
+
+
 # ------------------------------------- the product and the ladder bit
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_mont_mul_matches_reference(layout):
@@ -278,6 +487,31 @@ def test_ladder_step_uniform_bits_match_reference(bits):
         same_dual(a, w)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_ladder_steps_match_reference_bit_by_bit(layout):
+    """Five ladder bits in a row on 32 columns with random bits: the lane's
+    ``ladder_steps`` (plain route) and ``ops.mont_ladder_steps_op`` (the
+    kernels' wrapper, plain on the CPU, its operands kept in the kernels'
+    tiles between bits) equal five ``ladder_step`` calls of the reference;
+    no launch is counted on the CPU."""
+    p = Pair(6, layout, 32, seed=9)
+    bits = np.random.default_rng(9).integers(0, 2, (32, 5)).astype(np.int32)
+    r0, r1 = p.port(p.xs), p.port(p.ys)
+    before = ops.mont_ladder_op.launches
+    plain = ladder_steps(r0, r1, torch.from_numpy(bits), p.neg, p.n_hi)
+    twin = ops.mont_ladder_steps_op(r0, r1, torch.from_numpy(bits),
+                                    torch.from_numpy(p.neg),
+                                    torch.from_numpy(p.n_hi))
+    q0, q1 = p.ref(p.xs), p.ref(p.ys)
+    for i in range(bits.shape[1]):
+        q0, q1 = r_ladder_step(q0, q1, jnp.asarray(bits[:, i]),
+                               jnp.asarray(p.neg), jnp.asarray(p.n_hi))
+    for a, b, w in zip(plain, twin, (q0, q1)):
+        same_dual(a, w)
+        same_dual(b, w)
+    assert ops.mont_ladder_op.launches == before
+
+
 @pytest.mark.parametrize("n_limbs", [2, 3, 17])
 def test_kernel_plain_twins_match_core_product(n_limbs):
     """At the widths the chip sweep starts from, the tile-level twins equal
@@ -323,30 +557,28 @@ def test_mont_ops_broadcast_one_modulus_over_the_batch():
 
 def test_kernel_wrappers_refuse_host_tensors_and_bad_tables():
     """No fallback: the kernel wrappers take CUDA tensors only, and check
-    every table's shape first."""
+    the table image's size against the operand shapes first."""
     p = Pair(3, "base_ma", 4, seed=6)
-    tables = ops._mont_tables(p.B, p.Bp, p.lo_t, torch.device("cpu"))
+    image = ops._mont_image(p.B, p.Bp, p.lo_t, torch.device("cpu"))
     tiles = [torch.from_numpy(t).T.contiguous()
              for t in (*p.rows(p.xs), *p.rows(p.ys))]
     neg_t = torch.from_numpy(p.neg).T.contiguous()
     nhi_t = torch.from_numpy(p.n_hi).T.contiguous()
     with pytest.raises(ValueError, match="CUDA"):
-        mont_mul_kernel_call(*tiles, neg_t, nhi_t, *tables)
+        mont_mul_kernel_call(*tiles, neg_t, nhi_t, image)
     bit = torch.from_numpy(p.bits)
     with pytest.raises(ValueError, match="CUDA"):
-        mont_ladder_kernel_call(*tiles, bit, neg_t, nhi_t, *tables)
-    with pytest.raises(ValueError, match="table shapes"):
-        mont_mul_kernel_call(*tiles, neg_t, nhi_t, *tables[:-1],
-                             tables[-1][:-1])
+        mont_ladder_kernel_call(*tiles, bit, neg_t, nhi_t, image)
+    with pytest.raises(ValueError, match="table image"):
+        mont_mul_kernel_call(*tiles, neg_t, nhi_t, image[:-16])
     with backend("cuda"), pytest.raises(ValueError, match="CUDA tensor"):
         mont_mul(p.port(p.xs), p.port(p.ys), p.neg, p.n_hi)
     # wider than the kernels' widest template instance: refused up front
     n = MAX_CHANNELS + 1
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32)
-    wide = [z(n, n), z(n + 1), z(n, n), z(n, n), z(n), z(n, n + 1), z(n)]
     with pytest.raises(ValueError, match="at most 160 channels"):
         mont_mul_kernel_call(z(n + 1, 2), z(n, 2), z(n + 1, 2), z(n, 2),
-                             z(n, 2), z(n, 2), *wide)
+                             z(n, 2), z(n, 2), torch.zeros(16, dtype=torch.uint8))
 
 
 def test_dualrep_hi_must_be_base_layout():
@@ -727,21 +959,25 @@ def card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 9, 16, 17, 300, 1024, 2113])
 @pytest.mark.parametrize("n_limbs,layout", [(3, "base_ma"), (17, "rrns"),
                                             (64, "base_ma")])
-def test_cuda_mont_kernels_match_plain(card, n_limbs, layout):
-    p = Pair(n_limbs, layout, 300, seed=n_limbs)
+def test_cuda_mont_kernels_match_plain(card, n_limbs, layout, batch):
+    """Batches on and off the block widths (8 and 16 columns; 16 from 2,112
+    columns on, where 16-column blocks still cover 132 SMs)."""
+    p = Pair(n_limbs, layout, batch, seed=n_limbs)
     tables = ops._mont_tables(p.B, p.Bp, p.lo_t, card)
+    image = ops._mont_image(p.B, p.Bp, p.lo_t, card)
     tiles = [t.T.contiguous().to(card)
              for t in map(torch.from_numpy, (*p.rows(p.xs), *p.rows(p.ys)))]
     neg_t = torch.from_numpy(p.neg).T.contiguous().to(card)
     nhi_t = torch.from_numpy(p.n_hi).T.contiguous().to(card)
-    for got, want in zip(mont_mul_kernel_call(*tiles, neg_t, nhi_t, *tables),
+    for got, want in zip(mont_mul_kernel_call(*tiles, neg_t, nhi_t, image),
                          mont_mul_plain(*tiles, neg_t, nhi_t, *tables)):
         eq(got, want.cpu())
     bit = torch.from_numpy(p.bits).to(card)
     for got, want in zip(
-            mont_ladder_kernel_call(*tiles, bit, neg_t, nhi_t, *tables),
+            mont_ladder_kernel_call(*tiles, bit, neg_t, nhi_t, image),
             mont_ladder_plain(*tiles, bit, neg_t, nhi_t, *tables)):
         eq(got, want.cpu())
     torch.cuda.synchronize()

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``.
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+scripts in ``tools/`` import neither JAX nor anything of the JAX package
+``repro``.
 
 Checked twice: by importing every module of the port in a fresh interpreter
 and listing ``sys.modules``, and by scanning the sources for such imports.
@@ -40,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_sources_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
+    assert ROOT / "tools" / "mont_attribution.py" in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
