@@ -12,19 +12,22 @@ prints one JSON object per line:
                source, all started together) with the ptxas lines of the
                instances the main paths run (registers, spills; for the
                Montgomery kernels both block widths, 8 and 16 columns, with
-               the dynamic shared memory a block takes at RSA-2048 width),
-               and each kernel's static SASS opcode counts (``cuobjdump
-               -sass``; for the templated codec and Montgomery kernels, the
-               instance the main path runs);
+               the dynamic shared memory a block takes at RSA-2048 width;
+               for the column kernels mrc and compare the instances of
+               n = 137/138 and of n = 8), and each kernel's static SASS
+               opcode counts (``cuobjdump -sass``; for a templated kernel
+               the instance the main path runs);
 3. parity    — each kernel against its plain torch version on the card, bit
-               for bit: mrc, modmul and compare over n in {2, 3, 6, 17, 137},
-               bits in {8, 13, 15}, batch in {1, 7, 300, 65537}, int32 and
-               int64 inputs, and worst-case (m-1)**2 products; the codec
-               encode and decode over the codecs make(world=1, 8, 512),
-               make(world=8, correct=True) and make(world=1, n=8, bits=6),
-               the same batches, the corners +-0, +-inf, NaN, +-clip and
-               its neighbours and values that clip, and for the decode the
-               extreme sums +-qmax * world;
+               for bit: mrc, modmul and compare over n in {2, 3, 6, 17, 137,
+               200}, bits in {8, 13, 15}, batch in {1, 7, 300, 65537}, int32
+               and int64 inputs, and worst-case (m-1)**2 products; mrc and
+               compare on channel-major tiles, on the transposed view of
+               channels-last rows and on packed (batch, n + 1) rows read in
+               place; the codec encode and decode over the codecs
+               make(world=1, 8, 512), make(world=8, correct=True) and
+               make(world=1, n=8, bits=6), the same batches, the corners
+               +-0, +-inf, NaN, +-clip and its neighbours and values that
+               clip, and for the decode the extreme sums +-qmax * world;
 4. main path — slice 1: the port's quickstart on the card, then Algorithm 1
                (``>=``), the ring product and the ``normalize`` MRC at the
                paper's width (n = 137 15-bit moduli, 2**20 pairs) and on the
@@ -57,30 +60,42 @@ prints one JSON object per line:
                modexps (odd 2048-bit moduli with the top bit set, 2048-bit
                exponents), 64 modmuls and 4 divmods, every result against
                ``pow``/``divmod`` (run on a process pool), the launch counts
-               the calls imply, every fingerprint verified, and one wire
-               codeword corrupted, detected and repaired.  Then
-               ``RNSMontgomery`` modexp/modmul on one RSA-2048 N and the
-               ``rns_modmul`` example on the card;
+               the calls imply, each divmod's host time, its span between
+               two CUDA events and its compare launches, every fingerprint
+               verified, and one wire codeword corrupted, detected and
+               repaired.  Then ``RNSMontgomery`` modexp/modmul on one
+               RSA-2048 N and the ``rns_modmul`` example on the card;
 7. timing    — CUDA-event medians of each kernel and its plain version at
-               the main-path shapes (one launch between two events, the
-               wrapper's host work before the launch included; for the
-               Montgomery kernels and the one-column compare, whose launches
-               are short enough for that work to show, also ten back to
-               back, per launch, as ``ms_back_to_back``), beside the bound: the largest of bytes
-               over 3.35 TB/s (H100 SXM data sheet) and, for each pipe
+               the main-path shapes: ``ms`` is one launch between two
+               events, the wrapper's host work before the launch included;
+               for the column and Montgomery kernels also ten back to back,
+               per launch (``ms_back_to_back``), and ten queued behind a
+               sleep on the card, so that the events time the card alone
+               (``ms_device``).  Beside each, its bound: the largest of
+               bytes over 3.35 TB/s (H100 SXM data sheet) and, for each pipe
                (int32, conversion, fp32, load/store, int8 tensor cores), the
-               work on it over that pipe's peak rate.  The Montgomery
-               kernels at 8,192 columns, at 1,024 (the lane's ladder) and
-               on one column (the lane's other products), and the compare
-               kernel on one column at n = 138, the shape of each of a
-               divmod's comparisons;
+               work on it over that pipe's peak rate — for mrc, compare and
+               the Montgomery kernels the work the function needs at the
+               fewest instructions an exact step takes (``column_work``,
+               ``mont_mix``), for the others as their source issues it.  mrc
+               and compare at paper_n137, quickstart_n8 and on one column of
+               the lane's n = 138 base (the divmod's packed rows), with a
+               latency floor for that column: its 137 dependent steps at the
+               cheapest step's time, the slope of one-column device times
+               between n = 17 and 32; the Montgomery kernels at 8,192
+               columns, at 1,024 (the lane's ladder) and on one column (the
+               lane's other products).  To time a parent commit beside
+               this tree, run both trees' chip_smoke.py in one call to the
+               card (parent, change, change, parent) and read the rows;
 8. kernels   — one line listing every ported kernel, its launches summed
                over the three main paths (slice 1, the codec steps, the
-               crypto lane) and one timing row: slice 1's kernels at the
-               paper's width, the codec's on the gemma3-1b buffer, the
-               Montgomery kernels at the 8,192-column timing shape (the
-               lane runs the ladder on 1,024 columns and its products on
-               one; those rows are in phase 7).
+               crypto lane) and one timing row: mrc and modmul at the
+               paper's width, compare on the one column where 17,588 of its
+               17,657 launches run (the divmods' and the canonicalisations'
+               shape), the codec's on the gemma3-1b buffer, the Montgomery
+               kernels at the 8,192-column timing shape (the lane runs the
+               ladder on 1,024 columns and its products on one; those rows
+               are in phase 7).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero with no ``ok`` line; so does a host without a CUDA device, or
@@ -130,10 +145,6 @@ SUB_MOD = Counter({"int32": 3})             # a - b, compare, add m
 # conversion rate is given for; it is counted on the int32 pipe, an
 # assumption about its rate.  The float->int (F2I) is a conversion.
 MUL_MOD = Counter({"int32": 7, "conversion": 1, "fp32": 1})
-# One MRC step on the shared-memory column: SUB_MOD and MUL_MOD, plus
-# loads of w_i, m_i and 1/m_i and a store of w_i (shared) and one load of
-# the inverse (global, a warp-wide broadcast).
-MRC_STEP = SUB_MOD + MUL_MOD + Counter({"load/store": 5})
 # The gradient codec (csrc/codec_encode.cu, csrc/codec_decode.cu).
 # MULHI_MOD: t mod m by the multiply-high step (high product, t - q*m, one
 # compare and subtract).  EMBED: the signed embedding of one channel (the
@@ -142,7 +153,8 @@ MRC_STEP = SUB_MOD + MUL_MOD + Counter({"load/store": 5})
 MULHI_MOD = Counter({"int32": 4})
 EMBED = Counter({"int32": 7})
 ORACLE_COLUMNS = 4096
-SWEEP_NS, SWEEP_BITS = (2, 3, 6, 17, 137), (8, 13, 15)
+# 200: the column kernels' instance with 14 register slots a lane (n > 160)
+SWEEP_NS, SWEEP_BITS = (2, 3, 6, 17, 137, 200), (8, 13, 15)
 SWEEP_BATCHES = (1, 7, 300, 65537)
 PAPER_BATCH, SMALL_BATCH = 1 << 20, 1 << 22
 DEVICE = "cuda"
@@ -194,7 +206,40 @@ CRYPTO_SHAPE = "rsa2048_n138"
 CRYPTO_LANE_SHAPE = "rsa2048_n138_lane"
 CRYPTO_ONE_SHAPE = "rsa2048_n138_one"
 DIVMOD_SHAPE = "divmod_n138"
+# Bases whose one-column compare times give the time of the triangle's
+# cheapest step (one register slot a lane: 16 < n <= 32), for the latency
+# floor of the divmod's column.
+FLOOR_NS = (17, 32)
 ORACLE_CHUNK = 16                  # pow() calls per process-pool task
+# Card cycles to sleep before a queued timing: longer than the host takes to
+# enqueue ten launches of any kernel timed (about 2 ms at 1.98 GHz).
+QUEUE_CYCLES = 4_000_000
+
+
+def median_ms(fn, runs=20, warmup=3, inner=1, queued=False):
+    """Median over ``runs`` of the time between two CUDA events around
+    ``inner`` calls, per call.  With ``inner`` = 1 the time includes the
+    host work of the call before its launch (the card waits for it); back
+    to back, that work overlaps the previous launch.  ``queued``: the
+    launches are enqueued behind a sleep on the card, so the events time the
+    card alone (device time, no host work)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
+        e0.record()
+        for _ in range(inner):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / inner)
+    return statistics.median(times)
 
 
 def emit(obj) -> None:
@@ -211,9 +256,9 @@ def scaled(mix: Counter, k: int) -> Counter:
 
 
 def column_mix(name: str, n: int) -> Counter:
-    """Instructions by pipe for one column (mrc, compare) or one element
-    (modmul, codec_encode, codec_decode) of a kernel, as its source in csrc/
-    issues them; n counts the channels (for the encode, those written)."""
+    """Instructions by pipe for one element of modmul, codec_encode or
+    codec_decode, as its source in csrc/ issues them; n counts the channels
+    (for the encode, those written)."""
     steps = n * (n - 1) // 2
     if name == "codec_encode":
         # g in; scale, NaN test and select, sign, |r| min 2**44, 2**-15
@@ -235,18 +280,8 @@ def column_mix(name: str, n: int) -> Counter:
                          + Counter({"load/store": 1}), n)
                 + scaled(SUB_MOD + MUL_MOD, steps)
                 + scaled(Counter({"int32": 8}), n - 1))
-    if name == "modmul":   # x, y, m in, out; 1/m from an int->float (I2FP)
-        return MUL_MOD + Counter({"load/store": 4, "int32": 1})
-    mrc = scaled(MRC_STEP, steps) + Counter({"load/store": n - 1})  # w_j
-    if name == "mrc":      # n loads and shared stores in, n shared loads and stores out
-        return mrc + Counter({"load/store": 4 * n})
-    # compare: n subtractions (x1, x2, m_i in, w_i out), the MRC, the dot
-    # into m_a (w_i, beta_i, accumulate), its final reduction, and the
-    # verdict (xa1, xa2 in, SUB_MOD, equality, out).
-    return (scaled(SUB_MOD + Counter({"load/store": 4}), n) + mrc
-            + scaled(MUL_MOD + Counter({"int32": 1, "load/store": 2}), n)
-            + MUL_MOD - Counter({"int32": 1})
-            + SUB_MOD + Counter({"int32": 2, "load/store": 3}))
+    # modmul: x, y, m in, out; 1/m from an int->float (I2FP)
+    return MUL_MOD + Counter({"load/store": 4, "int32": 1})
 
 
 # One step of an MRC triangle, (w_i - a) * inv mod m_i, at the fewest
@@ -255,6 +290,33 @@ def column_mix(name: str, n: int) -> Counter:
 # on the int32 pipe as above), one FFMA that rounds the quotient, and the
 # multiply-add that leaves the lazy remainder.
 MRC_LAZY_STEP = Counter({"int32": 4, "fp32": 1})
+
+
+def column_work(name: str, n: int) -> Counter:
+    """The work one column of mrc or compare takes, by pipe, whatever the
+    implementation (the way mont_mix counts the Montgomery kernels): the
+    triangle's n(n-1)/2 steps at MRC_LAZY_STEP; for compare also the n
+    channel-wise subtractions (SUB_MOD), the dot's n terms each reduced
+    lazily (MRC_LAZY_STEP) and summed (one add each), one final reduction
+    of the sum (MUL_MOD) and the verdict (SUB_MOD and the equality).  No
+    load or store: each operand's bytes count once, in column_bytes, and
+    no kernel's own shared-memory traffic is work the function needs."""
+    tri = scaled(MRC_LAZY_STEP, n * (n - 1) // 2)
+    if name == "mrc":
+        return tri
+    return (tri + scaled(SUB_MOD, n)
+            + scaled(MRC_LAZY_STEP + Counter({"int32": 1}), n)
+            + MUL_MOD + SUB_MOD + Counter({"int32": 1}))
+
+
+def column_bytes(name: str, n: int, B: int, image: int) -> int:
+    """Bytes mrc or compare must move: each operand read once (mrc n int32
+    residues a column; compare 2 n and the two m_a residues), each output
+    written once (n int32 digits; a one-byte verdict, the kernel's
+    torch.bool), and the table image once."""
+    if name == "mrc":
+        return 8 * n * B + image
+    return 4 * (2 * n + 2) * B + B + image
 
 
 def mont_mix(name: str, n: int, nch_lo: int, n_hi: int) -> Counter:
@@ -296,7 +358,8 @@ def mont_bytes(name: str, n: int, nch_lo: int, n_hi: int, B: int,
 SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
 
 
-KERNEL_NAMES = ("mrc_kernel", "modmul_kernel", "compare_kernel",
+KERNEL_NAMES = ("mrc_thread_kernel", "mrc_warp_kernel", "modmul_kernel",
+                "compare_thread_kernel", "compare_warp_kernel",
                 "codec_encode_kernel", "codec_decode_kernel",
                 "mont_mul_kernel", "mont_ladder_kernel")
 # The codec kernels are templates on their channel count; the build and
@@ -304,17 +367,25 @@ KERNEL_NAMES = ("mrc_kernel", "modmul_kernel", "compare_kernel",
 # the encode, 3 base channels read by the decode), "_Z...ILi4E..." mangled.
 # The Montgomery kernels are templates on the columns a block holds: 8 on
 # the lane's 1,024 columns (the SASS census shows that one), 16 from 2,112
-# columns on (the timing shape).
-MAIN_INSTANCE = {"codec_encode_kernel": (4,), "codec_decode_kernel": (3,),
-                 "mont_mul_kernel": (8, 16), "mont_ladder_kernel": (8, 16)}
-TEMPLATE_ARG = re.compile(r"ILi(\d+)E")
+# columns on (the timing shape).  The column kernels (mrc, compare) come
+# in two mappings: a warp a column, a template on the register slots a lane
+# (5 at n = 137 and 138), and a thread a column, a template on n (8 on the
+# quickstart base).
+MAIN_INSTANCE = {"codec_encode_kernel": ((4,),), "codec_decode_kernel": ((3,),),
+                 "mont_mul_kernel": ((8,), (16,)),
+                 "mont_ladder_kernel": ((8,), (16,)),
+                 "mrc_warp_kernel": ((5,),), "mrc_thread_kernel": ((8,),),
+                 "compare_warp_kernel": ((5,),),
+                 "compare_thread_kernel": ((8,),)}
+TEMPLATE_ARG = re.compile(r"Li(\d+)E")
 
 
 def kernel_of(symbol: str):
-    """(kernel name, template argument or None) of a mangled symbol."""
+    """(kernel name, tuple of its integer template arguments or None) of a
+    mangled symbol."""
     name = next((k for k in KERNEL_NAMES if k in symbol), None)
-    arg = TEMPLATE_ARG.search(symbol)
-    return name, int(arg.group(1)) if arg else None
+    args = tuple(int(v) for v in TEMPLATE_ARG.findall(symbol))
+    return name, args or None
 
 
 def sass_opcodes(library: str) -> dict:
@@ -346,7 +417,8 @@ def ptxas_summary(ptxas: dict) -> dict:
             if "Compiling entry function" in ln:
                 name, arg = kernel_of(ln)
                 show = arg is None or arg in MAIN_INSTANCE.get(name, ())
-                label = name if arg is None else f"{name}<{arg}>"
+                label = (name if arg is None else
+                         f"{name}<{', '.join(map(str, arg))}>")
             r = [int(v) for v in re.findall(r"Used (\d+) registers", ln)]
             b = [int(v) for v in re.findall(r"(\d+) bytes spill", ln)]
             regs += r
@@ -914,11 +986,24 @@ def crypto_main_path(dev) -> dict:
         ticks.append((e0, e1))
         return out
 
+    # each divmod also between two CUDA events (its span on the card; the
+    # call ends in a host read, so the span holds all its device work) with
+    # the compare launches it made
+    divmods = []
+
     def clocked(name):
         def call(*args):
+            if name == "divmod":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                launched = ops.compare_op.launches
+                e0.record()
             t = time.perf_counter()
             out = orig[name](*args)
             host[name].append(time.perf_counter() - t)
+            if name == "divmod":
+                e1.record()
+                divmods.append((e0, e1, ops.compare_op.launches - launched))
             return out
         return call
 
@@ -1004,6 +1089,10 @@ def crypto_main_path(dev) -> dict:
                             "max": 1e3 * max(v), "first": 1e3 * v[0]}
                         for k, v in host.items() if v},
             "launches": got,
+            "divmod": {"host_ms": [1e3 * v for v in host["divmod"]],
+                       "device_span_ms": [a.elapsed_time(b)
+                                          for a, b, _ in divmods],
+                       "compare_launches": [k for _, _, k in divmods]},
             "oracle_ok": len(done), "oracle_s": oracle_s,
             "oracle_workers": workers, "verified": len(eng.verify_log),
             "reverified": reverified, "injected_detected": detected,
@@ -1131,17 +1220,22 @@ def main() -> int:
             inv = base.tensor("inv_tri_np", dev, torch.int32)
             m = base.tensor("moduli_np", dev, torch.int32)
             betas = base.tensor("betas_ma_np", dev, torch.int32)
+            image = ops._column_image(base, dev)
             for batch in SWEEP_BATCHES:
                 for dtype in (torch.int32, torch.int64):
                     where = dict(n=n, bits=bits, batch=batch, dtype=str(dtype))
                     x1 = residues(base, (batch,), dtype)
                     x2 = residues(base, (batch,), dtype)
-                    # mrc: wrapper (kernel) vs core plain, tile kernel vs tile plain
+                    # mrc: wrapper (kernel) vs core plain; the kernel call
+                    # on a channel-major tile and on the transposed view of
+                    # channels-last rows vs the tile's plain version
                     got = ops.mrc_op(base, x1)
                     require(got.dtype == dtype, f"mrc_op dtype at {where}")
                     hold("mrc", got, ref_mrc(base, x1), where)
-                    hold("mrc", mrc_kernel_call(tiles(x1), inv, m),
-                         mrc_plain(tiles(x1), inv, m), where)
+                    x1_32 = x1.to(torch.int32)
+                    for layout, t in (("tile", tiles(x1)), ("rows", x1_32.T)):
+                        hold("mrc", mrc_kernel_call(t, image),
+                             mrc_plain(t, inv, m), dict(where, layout=layout))
                     # modmul
                     got = ops.modmul_op(base, x1, x2)
                     require(got.dtype == dtype, f"modmul_op dtype at {where}")
@@ -1158,18 +1252,29 @@ def main() -> int:
                     got = ops.compare_op(A, B)
                     hold("compare", got, ref_compare(base, A.x, A.xa, B.x, B.xa),
                          where)
-                    a1 = A.xa.to(torch.int32).contiguous()
-                    a2 = B.xa.to(torch.int32).contiguous()
-                    t1, t2 = tiles(A.x), tiles(B.x)
-                    hold("compare",
-                         compare_kernel_call(t1, a1, t2, a2, inv, m, betas, base.ma),
-                         compare_plain(t1, a1, t2, a2, inv, m, betas, base.ma),
-                         where)
+                    # the kernel call on channel-major tiles and on the
+                    # packed (batch, n + 1) rows in place, vs the plain
+                    # version; and mrc on the packed rows' base channels
+                    pa, pb = (P.to_packed().to(torch.int32) for P in (A, B))
+                    views = {
+                        "tile": (tiles(A.x), A.xa.to(torch.int32).contiguous(),
+                                 tiles(B.x), B.xa.to(torch.int32).contiguous()),
+                        "packed": (pa[:, :n].T, pa[:, n], pb[:, :n].T, pb[:, n])}
+                    for layout, (t1, a1, t2, a2) in views.items():
+                        at = dict(where, layout=layout)
+                        hold("compare",
+                             compare_kernel_call(t1, a1, t2, a2, image, base.ma),
+                             compare_plain(t1, a1, t2, a2, inv, m, betas, base.ma),
+                             at)
+                    hold("mrc", mrc_kernel_call(pa[:, :n].T, image),
+                         mrc_plain(pa[:, :n].T, inv, m), dict(where, layout="packed"))
                     # a self-comparison is always true: both branches covered
                     require(bool(ops.compare_op(A, A).all()), f"A >= A at {where}")
                     cases += 1
     torch.cuda.synchronize()
     emit({"phase": "parity", "cases": cases, "skipped": skipped,
+          "layouts": {"mrc": ["tile", "rows", "packed"],
+                      "compare": ["tile", "packed"]},
           "max_abs_err": {k: max_err[k] for k in ("mrc", "modmul", "compare")},
           "exact": True})
     cases = codec_parity(dev, max_err)
@@ -1247,9 +1352,7 @@ def main() -> int:
         emit({"phase": "main", "step": label, "n": base.n, "batch": batch,
               "seconds": seconds, "launches": got, "true_share":
               float(ge.float().mean()), "oracle_columns": len(cols)})
-        main_tiles[label] = (base, tiles(A.x), A.xa.to(torch.int32).contiguous(),
-                             tiles(B.x), B.xa.to(torch.int32).contiguous(),
-                             A.residues, B.residues, got)
+        main_tiles[label] = (base, A, B, got)
 
     paper = make_paper_bases()[0]
     width_run("paper_n137", paper, PAPER_BATCH)
@@ -1287,25 +1390,6 @@ def main() -> int:
     emit({"phase": "crypto", "step": "frontends", **crypto_frontends(dev)})
 
     # -------------------------------------------------------- 7. timing
-    def median_ms(fn, runs=20, warmup=3, inner=1):
-        """Median over ``runs`` of the time between two events around
-        ``inner`` calls, per call.  With ``inner`` = 1 the time includes the
-        host work of the call before its launch (the card waits for it);
-        back to back, that work overlaps the previous launch."""
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(runs):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(inner):
-                fn()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1) / inner)
-        return statistics.median(times)
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1324,42 +1408,69 @@ def main() -> int:
         return ms[pipe], "bytes" if pipe == "bytes" else "operations", pipe, ms
 
     timings = {}
-    for label, (base, t1, a1, t2, a2, r1, r2, per_call) in main_tiles.items():
-        n, B = t1.shape
+
+    def column_row(name, label, base, A, B, per_call):
+        """One timing row of mrc or compare on the (batch, n + 1) rows of A
+        and B as the main path holds them (the kernel call reads them in
+        place), held against the plain version first."""
+        n, batch = base.n, A.shape[0]
         inv = base.tensor("inv_tri_np", dev, torch.int32)
         m = base.tensor("moduli_np", dev, torch.int32)
         betas = base.tensor("betas_ma_np", dev, torch.int32)
+        image = ops._column_image(base, dev)
+        t1, a1, t2, a2 = A.x.T, A.xa, B.x.T, B.xa
+        if name == "mrc":
+            kern = lambda: mrc_kernel_call(t1, image)
+            plain = lambda: mrc_plain(t1, inv, m)
+        else:
+            kern = lambda: compare_kernel_call(t1, a1, t2, a2, image, base.ma)
+            plain = lambda: compare_plain(t1, a1, t2, a2, inv, m, betas,
+                                          base.ma)
+        hold(name, kern(), plain(), label)
+        ms = median_ms(kern)
+        row = {"phase": "timing", "kernel": name, "shape": label, "n": n,
+               "batch": batch, "layout": "rows in place", "ms": ms,
+               "ms_back_to_back": median_ms(kern, inner=10),
+               "ms_device": median_ms(kern, inner=10, queued=True),
+               "plain_ms": median_ms(plain, runs=5 if batch == 1 else 20,
+                                     warmup=1)}
+        mix = column_work(name, n)
+        nbytes = column_bytes(name, n, batch, image.numel())
+        bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, batch)
+        row.update({"bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_pipe": pipe, "bound_share": bound_ms / ms,
+                    "bound_share_back_to_back":
+                        bound_ms / row["ms_back_to_back"],
+                    "pipe_ms": pipe_ms, "bytes": nbytes,
+                    "instructions": {p: batch * c for p, c in mix.items()},
+                    "sms": sms, "clock_max_mhz": clock_mhz,
+                    "launches_per_call": per_call, "card": card})
+        emit(row)
+        timings[(name, label)] = row
+
+    for label, (base, A, B, per_call) in main_tiles.items():
+        n, batch = base.n, A.shape[0]
+        for name in ("mrc", "compare"):
+            column_row(name, label, base, A, B, per_call[name])
         mred = base.tensor(("moduli_with", (base.ma,)), dev, torch.int32)
-        p1, p2 = tiles(r1), tiles(r2)
-        # name: (kernel, plain version, bytes moved, units of work)
-        work = {
-            "mrc": (lambda: mrc_kernel_call(t1, inv, m),
-                    lambda: mrc_plain(t1, inv, m),
-                    8 * n * B + 4 * n * (n + 1), B),
-            "modmul": (lambda: modmul_kernel_call(p1, p2, mred),
-                       lambda: modmul_plain(p1, p2, mred),
-                       12 * (n + 1) * B + 4 * (n + 1), (n + 1) * B),
-            "compare": (lambda: compare_kernel_call(t1, a1, t2, a2, inv, m, betas,
-                                                    base.ma),
-                        lambda: compare_plain(t1, a1, t2, a2, inv, m, betas,
-                                              base.ma),
-                        8 * (n + 1) * B + 4 * B + 4 * n * (n + 2), B),
-        }
-        for name, (kern, plain, nbytes, units) in work.items():
-            ms = median_ms(kern)
-            plain_ms = median_ms(plain, runs=20, warmup=1)
-            mix = column_mix(name, n)
-            bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, units)
-            row = {"phase": "timing", "kernel": name, "shape": label, "n": n,
-                   "batch": B, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bound_pipe": pipe, "bound_share": bound_ms / ms,
-                   "pipe_ms": pipe_ms, "bytes": nbytes,
-                   "instructions": {p: units * c for p, c in mix.items()},
-                   "sms": sms, "clock_max_mhz": clock_mhz,
-                   "launches_per_call": per_call[name], "card": card}
-            emit(row)
-            timings[(name, label)] = row
+        p1, p2 = tiles(A.residues), tiles(B.residues)
+        kern = lambda: modmul_kernel_call(p1, p2, mred)
+        plain = lambda: modmul_plain(p1, p2, mred)
+        nbytes, units = 12 * (n + 1) * batch + 4 * (n + 1), (n + 1) * batch
+        ms = median_ms(kern)
+        plain_ms = median_ms(plain, runs=20, warmup=1)
+        mix = column_mix("modmul", n)
+        bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, units)
+        row = {"phase": "timing", "kernel": "modmul", "shape": label, "n": n,
+               "batch": batch, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_pipe": pipe, "bound_share": bound_ms / ms,
+               "pipe_ms": pipe_ms, "bytes": nbytes,
+               "instructions": {p: units * c for p, c in mix.items()},
+               "sms": sms, "clock_max_mhz": clock_mhz,
+               "launches_per_call": per_call["modmul"], "card": card}
+        emit(row)
+        timings[("modmul", label)] = row
 
     # the codec kernels on the whole gemma3-1b gradient buffer; the plain
     # versions walk it in CHUNK-element pieces, as the main path's checks do
@@ -1457,39 +1568,49 @@ def main() -> int:
             timings[(name, label)] = row
         del cols, lad
 
-    # the compare kernel on one column of the lane's base (n = 138 and m_a):
-    # each of a divmod's Algorithm-1 comparisons is one such launch
+    # mrc and compare on one column of the lane's base (n = 138 and m_a),
+    # the packed (1, n + 1) rows a divmod hands each of its Algorithm-1
+    # comparisons
     base = ctx.baseB
-    inv = base.tensor("inv_tri_np", dev, torch.int32)
-    m = base.tensor("moduli_np", dev, torch.int32)
-    betas = base.tensor("betas_ma_np", dev, torch.int32)
     with backend("torch"):
         lhs, rhs = (RnsArray.from_parts(base, residues(base, (1,)),
                                         device=dev).normalize(Layout.BASE_MA)
                     for _ in range(2))
-    t1, t2 = tiles(lhs.x), tiles(rhs.x)
-    a1 = lhs.xa.to(torch.int32).contiguous()
-    a2 = rhs.xa.to(torch.int32).contiguous()
-    args = (t1, a1, t2, a2, inv, m, betas, base.ma)
-    hold("compare", compare_kernel_call(*args), compare_plain(*args),
-         DIVMOD_SHAPE)
-    ms = median_ms(lambda: compare_kernel_call(*args))
-    ms_back_to_back = median_ms(lambda: compare_kernel_call(*args), inner=10)
-    plain_ms = median_ms(lambda: compare_plain(*args), runs=5, warmup=1)
-    n = base.n
-    mix = column_mix("compare", n)
-    nbytes = 8 * (n + 1) + 4 + 4 * n * (n + 2)
-    bound_ms, bound_by, pipe, pipe_ms = bound(nbytes, mix, 1)
-    row = {"phase": "timing", "kernel": "compare", "shape": DIVMOD_SHAPE,
-           "n": n, "batch": 1, "ms": ms, "ms_back_to_back": ms_back_to_back,
-           "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
-           "bound_share": bound_ms / ms, "pipe_ms": pipe_ms, "bytes": nbytes,
-           "instructions": dict(mix), "sms": sms, "clock_max_mhz": clock_mhz,
-           "launches_per_call": 1,
-           "launches_per_divmod": 2 * base.M.bit_length() + 1, "card": card}
-    emit(row)
-    timings[("compare", DIVMOD_SHAPE)] = row
+    for name in ("mrc", "compare"):
+        column_row(name, DIVMOD_SHAPE, base, lhs, rhs, 1)
+    timings[("compare", DIVMOD_SHAPE)]["launches_per_divmod"] = (
+        2 * base.M.bit_length() + 1)
+
+    # A latency floor for that column, not a bound: its triangle's n - 1
+    # dependent steps, each at least as long as the cheapest kind of step,
+    # one register slot a lane.  That step's time is the slope of the
+    # one-column compare's device time between n = 17 and n = 32, where
+    # every step is of that kind and the launch's fixed work is the same.
+    step_ms = {}
+    for n in FLOOR_NS:
+        b = make_base(n, bits=15)
+        with backend("torch"):
+            lo, hi = (RnsArray.from_parts(b, residues(b, (1,)), device=dev)
+                      .normalize(Layout.BASE_MA) for _ in range(2))
+        img = ops._column_image(b, dev)
+        args = (lo.x.T, lo.xa, hi.x.T, hi.xa)
+        hold("compare", compare_kernel_call(*args, img, b.ma),
+             compare_plain(*args, b.tensor("inv_tri_np", dev, torch.int32),
+                           b.tensor("moduli_np", dev, torch.int32),
+                           b.tensor("betas_ma_np", dev, torch.int32), b.ma),
+             f"one column, n = {n}")
+        step_ms[n] = median_ms(lambda: compare_kernel_call(*args, img, b.ma),
+                               runs=50, inner=10, queued=True)
+    lo_n, hi_n = FLOOR_NS
+    ns_per_step = 1e6 * (step_ms[hi_n] - step_ms[lo_n]) / (hi_n - lo_n)
+    steps = base.n - 1
+    emit({"phase": "timing", "step": "latency_floor", "kernel": "compare",
+          "shape": DIVMOD_SHAPE, "dependent_steps": steps,
+          "ms_device_by_n": {str(k): v for k, v in step_ms.items()},
+          "ns_per_step": ns_per_step,
+          "floor_ms": 1e-6 * steps * ns_per_step,
+          "ms_device": timings[("compare", DIVMOD_SHAPE)]["ms_device"],
+          "ms": timings[("compare", DIVMOD_SHAPE)]["ms"], "card": card})
 
     # ------------------------------------------------------- 8. kernels
     replaces = {"mrc": "src/repro/kernels/mrc.py:33",
@@ -1506,8 +1627,10 @@ def main() -> int:
                "codec_decode": "src/repro_torch/kernels/csrc/codec_decode.cu",
                "mont_mul": "src/repro_torch/kernels/csrc/mont_ladder.cu",
                "mont_ladder": "src/repro_torch/kernels/csrc/mont_ladder.cu"}
+    # compare at the one-column shape of the divmods and the lane's
+    # canonicalisations: 17,588 of its 17,657 launches
     shape_of = {"mrc": "paper_n137", "modmul": "paper_n137",
-                "compare": "paper_n137", "codec_encode": MODEL_NAME,
+                "compare": DIVMOD_SHAPE, "codec_encode": MODEL_NAME,
                 "codec_decode": MODEL_NAME, "mont_mul": CRYPTO_SHAPE,
                 "mont_ladder": CRYPTO_SHAPE}
     rows = []

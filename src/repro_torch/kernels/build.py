@@ -11,6 +11,7 @@ Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,7 +24,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "load", "check", "pointers", "stream"]
+__all__ = ["build", "load", "check", "pointers", "view_args", "operands",
+           "stream", "device_guard", "sm_count"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -36,10 +38,15 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
+    # x and its (n, B) strides, out and its strides, table image, host
+    # layout (mrc.column_layout), lanes a column, warps, blocks, B, stream
+    "rns_mrc": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _L, _L, _P],
+    # x1 and strides, xa1 and stride, the same for x2 and xa2, out (bool),
+    # table image, host layout, m_a, lanes, warps, blocks, B, stream
+    "rns_compare": [_P, _L, _L, _P, _L, _P, _L, _L, _P, _L, _P, _P, _P, _I,
+                    _I, _I, _L, _L, _P],
     # name: (x..., out, tables..., ints..., B, stream)
-    "rns_mrc": [_P, _P, _P, _P, _I, _L, _P],
     "rns_modmul": [_P, _P, _P, _P, _I, _L, _P],
-    "rns_compare": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P],
     # g, out, host m / pow15 / off, nch, scale, qh, ql, B, stream
     "rns_codec_encode": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _L, _P],
     # x, out, host m / inv / half, n, inv_scale, B, stream
@@ -142,9 +149,45 @@ def pointers(what: str, *tensors, dtype=torch.int32) -> list[int]:
     return [t.data_ptr() for t in tensors]
 
 
+def view_args(t) -> list[int]:
+    """``t``'s address and its element strides, as the column kernels take
+    an operand that they read where it lies (no copy)."""
+    return [t.data_ptr(), *t.stride()]
+
+
+def operands(what: str, *tensors, dtype=torch.int32) -> list[int]:
+    """``view_args`` of each operand, flattened, after checking that they
+    are ``dtype`` tensors on one CUDA device (any strides)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{what}: operands must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: operands must be {dtype}, got "
+                             f"{t.dtype}")
+    return [a for t in tensors for a in view_args(t)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream(device) -> int:
-    """The handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on ``device``: the raw
+    handle, as ``torch.cuda.current_stream(device).cuda_stream`` gives it,
+    without building a Stream object (some 10 µs of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device_guard(device):
+    """``torch.cuda.device(device)``, or no context where ``device`` is the
+    current device already (the usual case: a few µs a launch saved)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, what: str) -> None:

@@ -80,7 +80,7 @@ def codec_decode_kernel_call(x_t, m, inv, half, *, inv_scale: float):
             + build.pointers("codec_decode", out, dtype=torch.float32))
     if B == 0:
         return out
-    with torch.cuda.device(x_t.device):
+    with build.device_guard(x_t.device):
         err = build.load().rns_codec_decode(
             *ptrs, m.ctypes.data, inv.ctypes.data, half.ctypes.data, n,
             inv_scale, B, build.stream(x_t.device))

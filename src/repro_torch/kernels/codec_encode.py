@@ -60,7 +60,7 @@ def codec_encode_kernel_call(g, m, pow15, off, *, scale: float, qh: int,
             + build.pointers("codec_encode", out))
     if B == 0:
         return out
-    with torch.cuda.device(g.device):
+    with build.device_guard(g.device):
         err = build.load().rns_codec_encode(
             *ptrs, *(t.ctypes.data for t in tabs), nch, scale, qh, ql, B,
             build.stream(g.device))

@@ -55,8 +55,9 @@
 //    digit's fully and the digit's own slot under a lane test; the
 //    slots above are never issued.  At n = 138 a triangle issues 11,808
 //    lane-steps for its 9,453 (80 % busy).  Each step is the lazy
-//    reduction of mrc_warp: one FFMA rounds the quotient, no correction
-//    until the digit is broadcast.  Depth: n - 1 steps, the paper's
+//    reduction of mrc_warp (mrc_warp.cuh, shared with mrc.cu and
+//    rns_compare.cu): one FFMA rounds the quotient, no correction until
+//    the digit is broadcast.  Depth: n - 1 steps, the paper's
 //    parallel MRC.
 //  * The four base-extension dots on the tensor cores, exactly.  Each
 //    warp writes its column's digits d_j < 2**15 into the block's digit
@@ -110,11 +111,10 @@
 #include <cstring>
 #include <initializer_list>
 
-#include "common.cuh"
+#include "mrc_warp.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 // Register slots a lane: 32 x 5 = 160 channels a side (RSA-2048 takes 139).
 constexpr int kSlots = 5;
 constexpr int kMaxChannels = 32 * kSlots;
@@ -154,27 +154,12 @@ struct Moduli {
 __device__ __forceinline__ void load_moduli(Moduli& md,
                                             const unsigned char* image,
                                             const Layout& L, int lane) {
-  const int* m_lo = reinterpret_cast<const int*>(image + L.m_lo);
-  const int* m_hi = reinterpret_cast<const int*>(image + L.m_hi);
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int r = 32 * k + lane;
-    md.lo[k] = (r < L.n) ? __ldg(m_lo + L.n - 1 - r) : 1;
-    md.hi[k] = (r < L.n_hi) ? __ldg(m_hi + L.n_hi - 1 - r) : 1;
-    md.rlo[k] = rns::recip_rn(md.lo[k]);
-    md.rhi[k] = rns::recip_rn(md.hi[k]);
-  }
-}
-
-// Rows 0..rows-1 of column col in the MRC mapping.
-__device__ __forceinline__ void load_rev(int (&v)[kSlots],
-                                         const int* __restrict__ p, int rows,
-                                         int64_t B, int64_t col, int lane) {
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int r = 32 * k + lane;
-    v[k] = (r < rows) ? p[(int64_t)(rows - 1 - r) * B + col] : 0;
-  }
+  rns::load_moduli<kSlots>(md.lo, md.rlo,
+                           reinterpret_cast<const int*>(image + L.m_lo), L.n,
+                           lane);
+  rns::load_moduli<kSlots>(md.hi, md.rhi,
+                           reinterpret_cast<const int*>(image + L.m_hi),
+                           L.n_hi, lane);
 }
 
 // One output tile of the block, stored coalesced: each warp puts its
@@ -200,71 +185,6 @@ __device__ __forceinline__ void store_tile(int* __restrict__ p,
     if (i < cols) p[(int64_t)c * B + col0 + i] = io[c * (C + 1) + i];
   }
   __syncthreads();
-}
-
-// The MRC step's reduction, exact without a correction per step: for
-// |t| < 2**31 with |t / m| < 2**16, one FFMA rounds t_f * (1/m) + 1.5 * 2**23
-// to the integer q nearest the product (the sum lies in [2**23, 2**24),
-// where the float spacing is 1), and the float's bits are 0x4B400000 + q.
-// t_f and 1/m are correctly rounded and the product is not rounded before
-// the sum, so |q - t/m| <= 1/2 + 2**16 * 2**-22.9 < 1 and r = t - q m lies
-// in (-m, m): a residue of t that is exact but not yet canonical.
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2**23
-constexpr unsigned kMagicBits = 0x4B400000u;
-
-// Algorithm 2 on a warp's column in the MRC mapping, in place: residues
-// in, mixed-radix digits out.  tri holds m_j^{-1} mod m_i for i > j at
-// tri[j (2n - j - 1) / 2 + i - j - 1].  The outer loop over the digit's
-// slot s unrolls, so every register index is a constant and the slots
-// above s are never issued.
-//
-// Between steps a channel keeps z = c - r (mod 2**32), c = 0x4B400000 m,
-// with r in (-m, m) its residue: then d = r - a is one three-input add,
-// |d| < m + 2**15 < 2**16 and |t| = |d inv| < 2**31, and the next z is one
-// multiply-add of the FFMA's bits, (0x4B400000 + q) m - t.  Only the digit
-// is made canonical, once, before its broadcast, and every channel after
-// the last step.  The digit's own slot is computed on every lane and kept
-// where the lane's channel is still open (a select, not a branch; the
-// spare lanes read inside the triangle's shared-memory window).
-__device__ __forceinline__ void mrc_warp(int (&w)[kSlots],
-                                         const int (&m)[kSlots],
-                                         const float (&rc)[kSlots],
-                                         const unsigned short* tri, int n,
-                                         int lane) {
-  // unsigned: the stored form wraps modulo 2**32
-  unsigned c[kSlots], z[kSlots];
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    c[k] = kMagicBits * (unsigned)m[k];
-    z[k] = c[k] - (unsigned)w[k];
-  }
-  // row + r' reads inv[j][n - 1 - r'] for step j at r = n - 1 - j
-  const unsigned short* row = tri + n - 2 - lane;
-#pragma unroll
-  for (int s = kSlots - 1; s >= 0; --s) {
-    const int top = min(32 * s + 31, n - 1);
-    const int bottom = max(32 * s, 1);  // r = 0 is the last digit: no step
-    for (int r = top; r >= bottom; --r) {
-      int v = (int)(c[s] - z[s]);
-      v += m[s] & (v >> 31);  // canonical: the digit, at lane r - 32 s
-      const int a = __shfl_sync(kFull, v, r - 32 * s);
-      const bool open = lane < r - 32 * s;
-#pragma unroll
-      for (int k = 0; k <= s; ++k) {
-        const int t = (int)(c[k] - z[k] - (unsigned)a) * (int)row[-32 * k];
-        const float y = __fmaf_rn(__int2float_rn(t), rc[k], kMagic);
-        const unsigned u = (unsigned)__float_as_int(y) * (unsigned)m[k] -
-                           (unsigned)t;
-        z[k] = (k < s || open) ? u : z[k];
-      }
-      row += r - 1;  // row j + 1 starts n - 1 - j entries on
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int v = (int)(c[k] - z[k]);
-    w[k] = v + (m[k] & (v >> 31));
-  }
 }
 
 // The warp's digits into its row of the two byte planes: digit c at byte
@@ -426,7 +346,7 @@ __device__ __forceinline__ void mont_mul_block(
     const int p = rns::barrett_mod(xl[k] * yl[k], md.lo[k], md.rlo[k]);
     w[k] = rns::barrett_mod(p * ng[k], md.lo[k], md.rlo[k]);
   }
-  mrc_warp(w, md.lo, md.rlo, sm.tri_lo, L.n, lane);
+  rns::mrc_warp<kSlots>(w, md.lo, md.rlo, sm.tri_lo, L.n, lane);
   put_digits(w, dlo, dhi, L.n, L.k1, lane);
   __syncthreads();
   dot_mma<C>(sm.dig, L.sd, sm.b1, L.s1, L.k1, L.nt1, sm.m_hi, sm.mu_hi,
@@ -443,7 +363,7 @@ __device__ __forceinline__ void mont_mul_block(
     ohi[k] = rns::barrett_mod(t * minv, md.hi[k], md.rhi[k]);
     w[k] = ohi[k];  // the B' MRC works on a copy: r' is an output
   }
-  mrc_warp(w, md.hi, md.rhi, sm.tri_hi, L.n_hi, lane);
+  rns::mrc_warp<kSlots>(w, md.hi, md.rhi, sm.tri_hi, L.n_hi, lane);
   put_digits(w, dlo, dhi, L.n_hi, L.k2, lane);
   __syncthreads();
   dot_mma<C>(sm.dig, L.sd, sm.b2, L.s2, L.k2, L.nt2, sm.m_lo, sm.mu_lo,
@@ -479,12 +399,12 @@ mont_mul_kernel(const int* __restrict__ xlo, const int* __restrict__ xhi,
   Moduli md;
   load_moduli(md, image, L, lane);
   int xl[kSlots], xh[kSlots], yl[kSlots], yh[kSlots], ng[kSlots], nh[kSlots];
-  load_rev(xl, xlo, L.n, B, cc, lane);
-  load_rev(xh, xhi, L.n_hi, B, cc, lane);
-  load_rev(yl, ylo, L.n, B, cc, lane);
-  load_rev(yh, yhi, L.n_hi, B, cc, lane);
-  load_rev(ng, neg, L.n, B, cc, lane);
-  load_rev(nh, nhi, L.n_hi, B, cc, lane);
+  rns::load_rev<kSlots>(xl, xlo, L.n, 1, B, cc, lane);
+  rns::load_rev<kSlots>(xh, xhi, L.n_hi, 1, B, cc, lane);
+  rns::load_rev<kSlots>(yl, ylo, L.n, 1, B, cc, lane);
+  rns::load_rev<kSlots>(yh, yhi, L.n_hi, 1, B, cc, lane);
+  rns::load_rev<kSlots>(ng, neg, L.n, 1, B, cc, lane);
+  rns::load_rev<kSlots>(nh, nhi, L.n_hi, 1, B, cc, lane);
   const Smem sm = smem_ptrs(smem, L);
   stage_wait();
 
@@ -515,12 +435,12 @@ mont_ladder_kernel(const int* __restrict__ r0lo, const int* __restrict__ r0hi,
   Moduli md;
   load_moduli(md, image, L, lane);
   int al[kSlots], ah[kSlots], bl[kSlots], bh[kSlots], ng[kSlots], nh[kSlots];
-  load_rev(al, r0lo, L.n, B, cc, lane);
-  load_rev(ah, r0hi, L.n_hi, B, cc, lane);
-  load_rev(bl, r1lo, L.n, B, cc, lane);
-  load_rev(bh, r1hi, L.n_hi, B, cc, lane);
-  load_rev(ng, neg, L.n, B, cc, lane);
-  load_rev(nh, nhi, L.n_hi, B, cc, lane);
+  rns::load_rev<kSlots>(al, r0lo, L.n, 1, B, cc, lane);
+  rns::load_rev<kSlots>(ah, r0hi, L.n_hi, 1, B, cc, lane);
+  rns::load_rev<kSlots>(bl, r1lo, L.n, 1, B, cc, lane);
+  rns::load_rev<kSlots>(bh, r1hi, L.n_hi, 1, B, cc, lane);
+  rns::load_rev<kSlots>(ng, neg, L.n, 1, B, cc, lane);
+  rns::load_rev<kSlots>(nh, nhi, L.n_hi, 1, B, cc, lane);
   const int mask = -(int)(bit[cc] != 0);  // all ones where the bit is set
   const Smem sm = smem_ptrs(smem, L);
   stage_wait();

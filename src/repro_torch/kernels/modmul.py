@@ -29,7 +29,7 @@ def modmul_kernel_call(x_t, y_t, m):
                          f"{tuple(y_t.shape)}, {tuple(m.shape)} do not fit")
     out = torch.empty_like(x_t)
     ptrs = build.pointers("modmul", x_t, y_t, out, m)
-    with torch.cuda.device(x_t.device):
+    with build.device_guard(x_t.device):
         err = build.load().rns_modmul(*ptrs, n, B, build.stream(x_t.device))
     build.check(err, "modmul")
     return out

@@ -120,15 +120,10 @@ def smem_bytes(n: int, nch_lo: int, n_hi: int, cols: int) -> int:
     return block_layout(n, nch_lo, n_hi, cols)["smem"]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def block_cols(B: int, device: torch.device) -> int:
     """The block's columns on ``device``: 16 where 16-column blocks still
     give every SM one (B >= 16 x SMs), else 8."""
-    return 16 if -(-B // 16) >= _sm_count(device) else 8
+    return 16 if -(-B // 16) >= build.sm_count(device) else 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,7 +284,7 @@ def mont_mul_kernel_call(xlo, xhi, ylo, yhi, neg, nhi, image):
     ptrs = build.pointers("mont_mul", xlo, xhi, ylo, yhi, neg, nhi, olo, ohi)
     img = build.pointers("mont_mul", image, dtype=torch.uint8)[0]
     layout = _layout_arg(n, nch_lo, n_hi, block_cols(B, xlo.device))
-    with torch.cuda.device(xlo.device):
+    with build.device_guard(xlo.device):
         err = build.load().rns_mont_mul(*ptrs, img, layout, B,
                                         build.stream(xlo.device))
     build.check(err, "mont_mul")
@@ -309,7 +304,7 @@ def mont_ladder_kernel_call(r0lo, r0hi, r1lo, r1hi, bit, neg, nhi, image):
                           nhi, *outs)
     img = build.pointers("mont_ladder", image, dtype=torch.uint8)[0]
     layout = _layout_arg(n, nch_lo, n_hi, block_cols(B, r0lo.device))
-    with torch.cuda.device(r0lo.device):
+    with build.device_guard(r0lo.device):
         err = build.load().rns_mont_ladder(*ptrs, img, layout, B,
                                            build.stream(r0lo.device))
     build.check(err, "mont_ladder")

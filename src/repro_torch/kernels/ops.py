@@ -6,10 +6,13 @@
 They present the same channels-last ``(..., n)`` API as ``repro_torch.core``
 and handle:
 
-* layout: flatten the batch and transpose to the kernels' channel-major
-  (n, B) int32 tiles (no copy when the operand is already channel-major,
-  e.g. an ``RnsArray`` with ``channel_axis=0``), and back, with the output
-  cast to the input dtype;
+* layout: flatten the batch to the kernels' (n, B) int32 operands and
+  back, with the output cast to the input dtype.  ``mrc_op`` and
+  ``compare_op`` hand the column kernels (n, B) *views* of int32 operands,
+  which they read where they lie (channels-last rows and the divmod's
+  packed rows included: no copy); the other kernels take contiguous
+  channel-major tiles (no copy when the operand is already channel-major,
+  e.g. an ``RnsArray`` with ``channel_axis=0``);
 * the device: a CUDA tensor launches the kernel — there is no fallback — and
   a CPU tensor takes the kernel's plain torch version;
 * constraints: the kernels need 15-bit (int32-lane) bases; wider bases
@@ -35,7 +38,7 @@ from .codec_encode import codec_encode_kernel_call, codec_encode_plain
 from .modmul import modmul_kernel_call, modmul_plain
 from .mont_ladder import (mont_ladder_kernel_call, mont_ladder_plain,
                           mont_mul_kernel_call, mont_mul_plain, pack_image)
-from .mrc import mrc_kernel_call, mrc_plain
+from .mrc import column_image, mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
 
 __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
@@ -65,6 +68,35 @@ def _untile(out_t, lead, nch: int, dtype):
     return out_t.T.reshape(*lead, nch).to(dtype)
 
 
+def _rows(x, nch: int):
+    """(..., nch) -> an (nch, B) int32 view of ``x``'s storage where the
+    batch flattens to one stride (int32 ``x``), else of a copy.  Each step
+    is skipped where it would change nothing: a divmod makes thousands of
+    one-column calls, and the host's time is theirs."""
+    if x.dim() != 2:
+        x = x.reshape(-1, nch)
+    if x.dtype != torch.int32:
+        x = x.to(torch.int32)
+    return x.T
+
+
+def _flat(xa, lead):
+    """(...,) m_a residues broadcast to ``lead`` -> a (B,) int32 view."""
+    if xa.shape != lead:
+        xa = xa.expand(lead)
+    if xa.dim() != 1:
+        xa = xa.reshape(-1)
+    return xa if xa.dtype == torch.int32 else xa.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _column_image(base: RNSBase, device: torch.device):
+    """The column kernels' table image of ``base`` (``mrc.column_image``)
+    as a uint8 tensor on ``device``, uploaded once."""
+    img = column_image(base.moduli_np, base.betas_ma_np, base.inv_tri_np)
+    return torch.from_numpy(img).to(device)
+
+
 def mrc_op(base, x=None):
     """Mixed-radix digits of ``x: (..., n)`` via the MRC kernel.
 
@@ -74,16 +106,14 @@ def mrc_op(base, x=None):
     if isinstance(base, RnsArray):
         base, x = base.base, base.x
     _check_bits(base)
-    dev = x.device
-    xt, lead = _tiles(x, base.n)
-    inv = base.tensor("inv_tri_np", dev, torch.int32)
-    m = base.tensor("moduli_np", dev, torch.int32)
+    xt = _rows(x, base.n)
     if _on_card(x):
-        out = mrc_kernel_call(xt, inv, m)
-        mrc_op.launches += 1
+        out = mrc_kernel_call(xt, _column_image(base, x.device))
+        mrc_op.launches += int(xt.shape[1] > 0)
     else:
-        out = mrc_plain(xt, inv, m)
-    return _untile(out, lead, base.n, x.dtype)
+        out = mrc_plain(xt, base.tensor("inv_tri_np", x.device, torch.int32),
+                        base.tensor("moduli_np", x.device, torch.int32))
+    return _untile(out, x.shape[:-1], base.n, x.dtype)
 
 
 def modmul_op(base, x=None, y=None):
@@ -141,18 +171,19 @@ def compare_op(base, x1=None, xa1=None, x2=None, xa2=None):
         base, x1, xa1, x2, xa2 = a.base, a.x, a.xa, b.x, b.xa
     _check_bits(base)
     dev = x1.device
-    x1t, lead = _tiles(x1, base.n)
-    x2t, _ = _tiles(x2.expand(x1.shape), base.n)
-    a1 = xa1.expand(lead).reshape(-1).to(torch.int32).contiguous()
-    a2 = xa2.expand(lead).reshape(-1).to(torch.int32).contiguous()
-    tables = (base.tensor("inv_tri_np", dev, torch.int32),
-              base.tensor("moduli_np", dev, torch.int32),
-              base.tensor("betas_ma_np", dev, torch.int32))
+    lead = x1.shape[:-1]
+    x1t = _rows(x1, base.n)
+    x2t = _rows(x2 if x2.shape == x1.shape else x2.expand(x1.shape), base.n)
+    a1, a2 = _flat(xa1, lead), _flat(xa2, lead)
     if _on_card(x1):
-        out = compare_kernel_call(x1t, a1, x2t, a2, *tables, base.ma)
-        compare_op.launches += 1
-    else:
-        out = compare_plain(x1t, a1, x2t, a2, *tables, base.ma)
+        out = compare_kernel_call(x1t, a1, x2t, a2, _column_image(base, dev),
+                                  base.ma)
+        compare_op.launches += int(x1t.shape[1] > 0)
+        return out.reshape(lead)
+    out = compare_plain(x1t, a1, x2t, a2,
+                        base.tensor("inv_tri_np", dev, torch.int32),
+                        base.tensor("moduli_np", dev, torch.int32),
+                        base.tensor("betas_ma_np", dev, torch.int32), base.ma)
     return out.reshape(lead).to(torch.bool)
 
 

@@ -262,14 +262,14 @@ def test_kernel_calls_reject_host_tensors():
     """A kernel call checks its operands before the library is loaded."""
     tb = t_make_base(3, bits=15)
     x = torch.zeros(3, 8, dtype=torch.int32)
-    inv = tb.tensor("inv_tri_np", "cpu", torch.int32)
     m = tb.tensor("moduli_np", "cpu", torch.int32)
+    image = ops._column_image(tb, torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        mrc_kernel_call(x, inv, m)
+        mrc_kernel_call(x, image)
     with pytest.raises(ValueError, match="CUDA"):
         modmul_kernel_call(x, x, m)
     with pytest.raises(ValueError):
-        compare_kernel_call(x, x[0], x, x[0], inv, m, m, tb.ma)
+        compare_kernel_call(x, x[0], x, x[0], image, tb.ma)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -299,12 +299,13 @@ def test_cuda_kernels_match_plain(card, n, bits):
     m = base.tensor("moduli_np", card, torch.int32)
     betas = base.tensor("betas_ma_np", card, torch.int32)
     t1, t2 = x1.T.contiguous(), x2.T.contiguous()
-    eq(mrc_kernel_call(t1, inv, m), mrc_plain(t1, inv, m))
+    image = ops._column_image(base, card)
+    eq(mrc_kernel_call(t1, image), mrc_plain(t1, inv, m))
     eq(modmul_kernel_call(t1, t2, m), modmul_plain(t1, t2, m))
     with backend("torch"):
         A = RnsArray.from_parts(base, x1, device=card).normalize(Layout.BASE_MA)
         B = RnsArray.from_parts(base, x2, device=card).normalize(Layout.BASE_MA)
     a1, a2 = A.xa.contiguous(), B.xa.contiguous()
-    eq(compare_kernel_call(t1, a1, t2, a2, inv, m, betas, base.ma),
+    eq(compare_kernel_call(t1, a1, t2, a2, image, base.ma),
        compare_plain(t1, a1, t2, a2, inv, m, betas, base.ma))
     torch.cuda.synchronize()

@@ -55,16 +55,24 @@ def _sub(text: str, pattern: str, repl: str, flags=0) -> str:
     return out
 
 
+# Each variant edits one file of the build: mont_ladder.cu, or the MRC
+# triangle's header it includes (mrc_warp.cuh, whose operand loader the
+# Montgomery kernels share with the column kernels).
 VARIANTS = {
-    "full": lambda s: s,
-    "no_mrc": lambda s: _sub(s, r"\n  mrc_warp\([^;]*;", ""),
-    "no_dot": lambda s: _sub(s, r"\n  dot_mma<C>\([^;]*;", ""),
-    "no_stage": lambda s: _sub(s, r'asm volatile\("cp\.async\.cg.*?: "memory"\);',
-                               "(void)dst;", re.S),
-    "no_load": lambda s: _sub(s, r"p\[\(int64_t\)\(rows - 1 - r\) \* B \+ col\]",
-                              "(int)((lane + col) & 255)"),
-    "no_store": lambda s: _sub(s, r"if \(i < cols\) p\[",
-                               "if (i < cols && B < 0) p["),
+    "full": ("mont_ladder.cu", lambda s: s),
+    "no_mrc": ("mont_ladder.cu",
+               lambda s: _sub(s, r"\n  rns::mrc_warp<kSlots>\([^;]*;", "")),
+    "no_dot": ("mont_ladder.cu",
+               lambda s: _sub(s, r"\n  dot_mma<C>\([^;]*;", "")),
+    "no_stage": ("mont_ladder.cu",
+                 lambda s: _sub(s, r'asm volatile\("cp\.async\.cg.*?: "memory"\);',
+                                "(void)dst;", re.S)),
+    "no_load": ("mrc_warp.cuh",
+                lambda s: _sub(s, r"\? p\[col \* cs \+ \(int64_t\)\(rows - 1 - r\) \* chs\]",
+                               "? (int)((l + col) & 255)")),
+    "no_store": ("mont_ladder.cu",
+                 lambda s: _sub(s, r"if \(i < cols\) p\[",
+                                "if (i < cols && B < 0) p[")),
 }
 
 
@@ -72,14 +80,14 @@ def build_variants(tmp: str) -> dict:
     """One shared library per variant, the nvcc processes run together."""
     from repro_torch.kernels import build
 
-    src = open(os.path.join(CSRC, "mont_ladder.cu")).read()
     procs = {}
-    for name, edit in VARIANTS.items():
+    for name, (target, edit) in VARIANTS.items():
         d = os.path.join(tmp, name)
         os.makedirs(d)
-        shutil.copy(os.path.join(CSRC, "common.cuh"), d)
-        with open(os.path.join(d, "mont_ladder.cu"), "w") as f:
-            f.write(edit(src))
+        for f in ("mont_ladder.cu", "common.cuh", "mrc_warp.cuh"):
+            shutil.copy(os.path.join(CSRC, f), d)
+        with open(os.path.join(d, target), "w") as f:
+            f.write(edit(open(os.path.join(CSRC, target)).read()))
         so = os.path.join(d, "lib.so")
         cmd = [build._nvcc(), *build._ARCH, *build._FLAGS, "-shared", "-o",
                so, os.path.join(d, "mont_ladder.cu")]
