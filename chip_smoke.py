@@ -47,6 +47,25 @@ prints one JSON object per line:
                decode to the oracle sum / 8, and one compare launch gives
                the sum's sign), and RRNS repair of injected faults on every
                channel, with a two-channel fault refused;
+5b. train    — slice 4, the training path at full width: gemma3-1b
+               (999,812,736 f32 parameters) through the port's training
+               driver ``repro_torch.launch.train.main``, batch 2 x seq 1024,
+               4 steps on the fp32 path, then 4 on ``--rns-allreduce`` (a
+               one-rank NCCL group, ``GradCodec.make(world=2)``) from the
+               same parameters and batches: finite losses, a per-step loss
+               drift under 0.05, exactly one codec_encode and one
+               codec_decode launch a step (none on the fp32 path), and on
+               step 1 the encode of the real gradient buffer and the decode
+               of the summed wire held against their plain versions, bit for
+               bit.  Then ``--rns-correct`` with one wire residue corrupted
+               at step 2: repaired == 1 there, nothing unrepairable, and the
+               parameters after step 4 bit-equal to the same run without
+               the fault.  Per step: host ms around a synchronised step,
+               tokens/s, CUDA-event ms of forward + backward,
+               ``tree_pack_rns``, ``all_reduce`` and ``adamw_update`` with
+               its decode; per run the peak device memory beside the
+               state's reckoned bytes.  Last the ``rns_gradient_training``
+               example at smoke size on the card;
 6. crypto    — slice 3, the RNS crypto lane at RSA-2048 width.  Parity:
                the Montgomery product and ladder-bit kernels against their
                plain versions, bit for bit on every channel, over n_limbs in
@@ -88,8 +107,9 @@ prints one JSON object per line:
                this tree, run both trees' chip_smoke.py in one call to the
                card (parent, change, change, parent) and read the rows;
 8. kernels   — one line listing every ported kernel, its launches summed
-               over the three main paths (slice 1, the codec steps, the
-               crypto lane) and one timing row: mrc and modmul at the
+               over the four main paths (slice 1, the codec steps, the
+               full-width training runs, the crypto lane) and one timing
+               row: mrc and modmul at the
                paper's width, compare on the one column where 17,588 of its
                17,657 launches run (the divmods' and the canonicalisations'
                shape), the codec's on the gemma3-1b buffer, the Montgomery
@@ -104,6 +124,7 @@ a directory without the repository's ``src/``.
 from __future__ import annotations
 
 import datetime
+import functools
 import json
 import math
 import multiprocessing
@@ -160,21 +181,9 @@ PAPER_BATCH, SMALL_BATCH = 1 << 20, 1 << 22
 DEVICE = "cuda"
 
 # Slice 2, the gradient codec.  Its main path runs on the parameter tree of
-# gemma3-1b as the reference builds it (src/repro/configs/gemma3_1b.py,
-# ``repro.models.model.init_params``; shapes read with jax.eval_shape on the
-# reference): 10 f32 leaves, 999,812,736 elements.
-MODEL_TREE = {
-    "embed": (262144, 1152),
-    "final_norm": (1152,),
-    "layers/attn/wk": (26, 1152, 1, 256),
-    "layers/attn/wo": (26, 4, 256, 1152),
-    "layers/attn/wq": (26, 1152, 4, 256),
-    "layers/attn/wv": (26, 1152, 1, 256),
-    "layers/ln1": (26, 1152),
-    "layers/ln2": (26, 1152),
-    "layers/mlp/wi": (26, 1152, 2, 6912),
-    "layers/mlp/wo": (26, 6912, 1152),
-}
+# gemma3-1b as the port builds it (``model_tree``: the shapes of
+# ``repro_torch.models.abstract_params``, the reference's tree): 10 f32
+# leaves, 999,812,736 elements.
 MODEL_NAME = "gemma3_1b"
 CODEC_STEPS = 3
 CODEC_SWEEP = (dict(world=1), dict(world=8), dict(world=512),
@@ -185,6 +194,16 @@ CLIP_STRIDE = 1_000_003            # every such element is scaled past the clip
 CHUNK = 1 << 26                    # elements per plain-version comparison
 DIST_BACKEND = "nccl"
 
+# Slice 4, the training path: gemma3-1b at full width through the port's
+# training driver (``repro_torch.launch.train.main``), batch 2 x seq 1024,
+# past the 512-token window of 5 layers in 6; every run from the same
+# ``init_params`` seed and the same ``SyntheticLM`` batches.
+TRAIN_ARGS = ("--arch", "gemma3-1b", "--no-smoke", "--batch", "2",
+              "--seq", "1024", "--steps", "4")
+TRAIN_CHECK_STEP = 1      # the RNS run's step held against the plain versions
+TRAIN_INJECT_STEP = 2     # the --rns-correct run's corrupted step
+TRAIN_MAX_DRIFT = 0.05    # examples/rns_gradient_training.py's own limit
+
 # Slice 3, the crypto lane at RSA-2048 width: CryptoContext(n_limbs=138,
 # exp_bits=2048) — 138 15-bit moduli a side (M, M' of 2062 bits), nch_lo =
 # 139 B-side channels with m_a, n_hi = 138.  The 137 moduli of
@@ -192,8 +211,9 @@ DIST_BACKEND = "nccl"
 CRYPTO_LIMBS, CRYPTO_EXP_BITS, RSA_BITS = 138, 2048, 2048
 CRYPTO_SLOTS, CRYPTO_CHUNK = 1024, 8
 # One divmod at this width is 2 * 2062 + 1 Algorithm-1 comparisons on one
-# column, each a compare launch that runs the n = 138 MRC in one thread:
-# about 3.5 s on the card, so the lane takes 4, not 64 (PERF.md).
+# column, each a one-column compare launch of 0.057 ms (PERF.md §6, NVIDIA
+# H100 80GB HBM3 at 700 W); a divmod is host-bound, 1.0-2.1 s of torch ops
+# around those launches, so the lane takes 4, not 64.
 CRYPTO_MODEXPS, CRYPTO_MODMULS, CRYPTO_DIVMODS = 1024, 64, 4
 CRYPTO_SWEEP_LIMBS, CRYPTO_RRNS_LIMBS = (2, 3, 8, 17, 64, 138), (8, 138)
 CRYPTO_BATCHES = (1, 7, 300, 4099)
@@ -214,6 +234,18 @@ ORACLE_CHUNK = 16                  # pow() calls per process-pool task
 # Card cycles to sleep before a queued timing: longer than the host takes to
 # enqueue ten launches of any kernel timed (about 2 ms at 1.98 GHz).
 QUEUE_CYCLES = 4_000_000
+
+
+@functools.lru_cache(maxsize=None)
+def model_tree() -> dict:
+    """{leaf name: shape} of gemma3-1b's parameters, in the wire buffer's
+    leaf order, from the port's ``abstract_params`` (nothing allocated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist._tree import flatten_named
+    from repro_torch.models import abstract_params
+
+    return {name: tuple(leaf.shape) for name, leaf in
+            flatten_named(abstract_params(get_config("gemma3-1b")))}
 
 
 def median_ms(fn, runs=20, warmup=3, inner=1, queued=False):
@@ -449,11 +481,9 @@ def nest(flat: dict) -> dict:
 
 
 def leaf_order() -> list:
-    """MODEL_TREE's leaf names in the wire buffer's order (the reference's
-    flatten order: sorted keys at every level)."""
-    from repro_torch.dist._tree import flatten
-
-    return flatten(nest({name: name for name in MODEL_TREE}))[0]
+    """The leaf names in the wire buffer's order (the reference's flatten
+    order: sorted keys at every level), as ``model_tree`` holds them."""
+    return list(model_tree())
 
 
 def seeded_grad(shape, seed: int, dev):
@@ -599,7 +629,7 @@ def codec_parity(dev, max_err) -> int:
 
 
 def codec_main_path(dev, group, max_err) -> dict:
-    """Slice 2's main path: CODEC_STEPS AdamW steps on MODEL_TREE, each
+    """Slice 2's main path: CODEC_STEPS AdamW steps on model_tree(), each
     composed as the reference's train step composes it, with the checks of
     each step after its launch counts are read."""
     import torch
@@ -613,7 +643,7 @@ def codec_main_path(dev, group, max_err) -> dict:
     codec = GradCodec.make(world=REPLICAS)   # examples/rns_gradient_training.py
     order = leaf_order()
     pgen = torch.Generator(device=dev).manual_seed(0)
-    params = nest({name: torch.randn(MODEL_TREE[name], generator=pgen,
+    params = nest({name: torch.randn(model_tree()[name], generator=pgen,
                                      device=dev).mul_(0.02)
                    for name in order})
     opt = adamw_init(params)
@@ -628,7 +658,7 @@ def codec_main_path(dev, group, max_err) -> dict:
         events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         t0 = time.perf_counter()
         events[0].record()
-        grads = nest({name: seeded_grad(MODEL_TREE[name], grad_seed(step, i),
+        grads = nest({name: seeded_grad(model_tree()[name], grad_seed(step, i),
                                         dev)
                       for i, name in enumerate(order)})
         events[1].record()
@@ -674,13 +704,19 @@ def codec_main_path(dev, group, max_err) -> dict:
 def wire_elements() -> int:
     import math
 
-    return sum(math.prod(s) for s in MODEL_TREE.values())
+    return sum(math.prod(s) for s in model_tree().values())
 
 
 def _leaves(tree):
     from repro_torch.dist._tree import flatten
 
     return flatten(tree)[0]
+
+
+def _named(tree) -> list:
+    from repro_torch.dist._tree import flatten_named
+
+    return flatten_named(tree)
 
 
 def check_codec_step(codec, wire, decoded, order, step, denom, dev,
@@ -697,7 +733,7 @@ def check_codec_step(codec, wire, decoded, order, step, denom, dev,
     enc, enc_kw, dec, dec_kw = codec_tables(codec)
     off = 0
     for i, (name, leaf) in enumerate(zip(order, _leaves(decoded))):
-        g = seeded_grad(MODEL_TREE[name], grad_seed(step, i), dev).view(-1)
+        g = seeded_grad(model_tree()[name], grad_seed(step, i), dev).view(-1)
         got = leaf.reshape(-1)
         for a in range(0, g.numel(), CHUNK):
             b = min(a + CHUNK, g.numel())
@@ -729,7 +765,7 @@ def codec_replicas(dev) -> dict:
     from repro_torch.kernels import ops
 
     codec = GradCodec.make(world=REPLICAS)
-    shape = MODEL_TREE[REPLICA_LEAF]
+    shape = model_tree()[REPLICA_LEAF]
     ops.reset_launches()
     summed, v = None, None
     for r in range(REPLICAS):
@@ -766,7 +802,7 @@ def codec_rrns(dev) -> dict:
     from repro_torch.kernels import ops
 
     codec = GradCodec.make(world=REPLICAS, correct=True)
-    g = seeded_grad(MODEL_TREE[REPLICA_LEAF], 60_000, dev).view(-1)
+    g = seeded_grad(model_tree()[REPLICA_LEAF], 60_000, dev).view(-1)
     ops.reset_launches()
     clean = codec.encode_array(g, channel_major=True).residues
     chans = tuple(codec.base.moduli) + codec.redundant
@@ -807,6 +843,280 @@ def codec_rrns(dev) -> dict:
     return {"leaf": REPLICA_LEAF, "channels": len(chans), "faults": n_faults,
             "report": report, "two_channel_report": refused,
             "launches": launches}
+
+
+# ---------------------------------------------- slice 4: the training path
+def check_train_encode(codec, grads, wire, max_err) -> int:
+    """A training step's wire buffer (the codec_encode kernel's output on
+    the step's real gradients) against the plain encode of those gradients,
+    leaf by leaf in CHUNK-element pieces, bit for bit.  Returns the elements
+    compared."""
+    from repro_torch.kernels.codec_encode import codec_encode_plain
+
+    enc, enc_kw, _, _ = codec_tables(codec)
+    off = 0
+    for leaf in _leaves(grads):
+        g = leaf.reshape(-1)
+        for a in range(0, g.numel(), CHUNK):
+            b = min(a + CHUNK, g.numel())
+            err = int((wire.residues[:, off + a : off + b]
+                       - codec_encode_plain(g[a:b], *enc, **enc_kw))
+                      .abs().max())
+            max_err["codec_encode"] = max(max_err["codec_encode"], err)
+            require(err == 0, "train: the encode of the real gradients "
+                    "differs from its plain version")
+        off += g.numel()
+    require(off == wire.residues.shape[1], "train: wire width")
+    return off
+
+
+def check_train_decode(codec, summed, decoded, denom, max_err) -> int:
+    """The decoded gradient tree (the codec_decode kernel's output at the
+    optimizer boundary) against the plain decode of the summed wire / the
+    group's size, in CHUNK-element pieces, bit for bit.  Returns the
+    elements compared."""
+    from repro_torch.kernels.codec_decode import codec_decode_plain
+
+    _, _, dec, dec_kw = codec_tables(codec)
+    off = 0
+    for leaf in _leaves(decoded):
+        got = leaf.reshape(-1)
+        for a in range(0, got.numel(), CHUNK):
+            b = min(a + CHUNK, got.numel())
+            want = codec_decode_plain(summed.residues[:, off + a : off + b],
+                                      *dec, **dec_kw) / denom
+            max_err["codec_decode"] = max(max_err["codec_decode"],
+                                          float((got[a:b] - want).abs().max()))
+            require(bits_equal(got[a:b], want), "train: the decode of the "
+                    "summed wire differs from its plain version")
+        off += got.numel()
+    require(off == summed.residues.shape[1], "train: decoded width")
+    return off
+
+
+class TrainProbe:
+    """Instrumentation of ``repro_torch.train.train_step`` around one run of
+    the training driver.  It wraps the functions a step calls: CUDA events
+    around each stage (forward_backward, tree_pack_rns, all_reduce — the
+    ``psum`` of the 2-D wire buffer; the other ``psum`` calls carry the
+    metrics — and adamw_update with its decode), the
+    launch counters read at a step's first call and after its optimizer
+    update, and on step ``check`` the encode and the decode held against
+    their plain versions over the whole buffer (after the encode's closing
+    event, inside the update's: that step's ``adamw_update`` time holds the
+    decode's check)."""
+
+    NAMES = ("value_and_grad", "tree_pack_rns", "psum", "adamw_update",
+             "tree_decode")
+
+    def __init__(self, max_err, check=None):
+        from repro_torch.kernels import ops
+        from repro_torch.train import train_step
+
+        self.ts, self.ops, self.max_err, self.check = (train_step, ops,
+                                                       max_err, check)
+        self.steps, self.checked = [], {}
+
+    def __enter__(self):
+        self.orig = {name: getattr(self.ts, name) for name in self.NAMES}
+        for name in self.NAMES:
+            setattr(self.ts, name, getattr(self, "_" + name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ts, name, fn)
+
+    def _stage(self, stage, fn, *args, **kw):
+        import torch
+
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*args, **kw)
+        e1.record()
+        self.steps[-1]["events"][stage] = (e0, e1)
+        return out
+
+    def _checking(self) -> bool:
+        return len(self.steps) - 1 == self.check
+
+    def _value_and_grad(self, loss_fn, params, batch):
+        self.steps.append({"events": {}, "before": launch_counts(self.ops)})
+        return self._stage("forward_backward", self.orig["value_and_grad"],
+                           loss_fn, params, batch)
+
+    def _tree_pack_rns(self, codec, grads):
+        wire, meta = self._stage("tree_pack_rns", self.orig["tree_pack_rns"],
+                                 codec, grads)
+        if self._checking():
+            self.checked["codec_encode"] = check_train_encode(
+                codec, grads, wire, self.max_err)
+        return wire, meta
+
+    def _psum(self, t, group):
+        if t.dim() != 2:
+            return self.orig["psum"](t, group)
+        return self._stage("all_reduce", self.orig["psum"], t, group)
+
+    def _adamw_update(self, *args, **kw):
+        out = self._stage("adamw_update", self.orig["adamw_update"], *args,
+                          **kw)
+        self.steps[-1]["after"] = launch_counts(self.ops)
+        return out
+
+    def _tree_decode(self, codec, summed, meta, denom=1.0):
+        out = self.orig["tree_decode"](codec, summed, meta, denom=denom)
+        if self._checking():
+            self.checked["codec_decode"] = check_train_decode(
+                codec, summed, out, denom, self.max_err)
+        return out
+
+    def report(self) -> list:
+        """Per step: stage ms from the events, and launches."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [{"stages_ms": {k: a.elapsed_time(b)
+                               for k, (a, b) in s["events"].items()},
+                 "launches": {k: s["after"][k] - s["before"][k]
+                              for k in s["after"]}}
+                for s in self.steps]
+
+
+def train_reckoning(elements: int, channels: int) -> dict:
+    """The bytes of the training state on one rank, before activations:
+    ``elements`` f32 parameters, AdamW's m and v, the gradients, the flat
+    buffer ``tree_pack`` encodes, the int32 wire of ``channels`` channels
+    and the decoded flat buffer (``channels`` = 0: the fp32 path, no codec
+    buffers)."""
+    f32 = 4 * elements
+    out = {"params": f32, "adamw_m_v": 2 * f32, "grads": f32}
+    if channels:
+        out.update(flat=f32, wire=channels * f32, decoded=f32)
+    out["total"] = sum(out.values())
+    return out
+
+
+def train_run(dev, max_err, label, flags=(), check=None) -> dict:
+    """One run of ``repro_torch.launch.train.main`` on TRAIN_ARGS and
+    ``flags`` under a TrainProbe, its own output captured; each step's line
+    emitted.  Returns the run's summary with ``params``, per-step stages
+    and launches, and the launches summed."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    torch.cuda.empty_cache()
+    argv = [*TRAIN_ARGS, "--device", DEVICE, *flags]
+    out = io.StringIO()
+    with TrainProbe(max_err, check) as probe, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        params, summary = launch_train.main(argv)
+        seconds = time.perf_counter() - t0
+    steps = probe.report()
+    channels = 0 if not flags else (5 if "--rns-correct" in flags else 4)
+    want = implied(codec_encode=1, codec_decode=1) if channels else implied()
+    total = Counter()
+    for i, s in enumerate(steps):
+        require(s["launches"] == want,
+                f"train {label} step {i} launches {s['launches']}")
+        require(math.isfinite(summary["losses"][i]),
+                f"train {label} step {i}: loss {summary['losses'][i]}")
+        total.update(s["launches"])
+        row = {"phase": "train", "run": label, "step": i,
+               "loss": summary["losses"][i], "gnorm": summary["gnorms"][i],
+               "ms": summary["step_ms"][i],
+               "tokens_per_s": summary["tokens_per_s"][i],
+               "stages_ms": s["stages_ms"], "launches": s["launches"],
+               "checked": i == check}
+        for k in ("repaired", "unrepairable"):
+            if k in summary:
+                row[k] = summary[k][i]
+        emit(row)
+    for name, p in _named(params):
+        require(bool(torch.isfinite(p).all()), f"train {label}: {name}")
+    require(out.getvalue().strip().splitlines()[-1] == json.dumps(summary),
+            f"train {label}: the training CLI's summary line")
+    elements = sum(p.numel() for _, p in _named(params))
+    if check is not None:
+        require(probe.checked == {"codec_encode": elements,
+                                  "codec_decode": elements},
+                f"train {label}: kernels checked {probe.checked}")
+    return {"params": params, "summary": summary, "seconds": seconds,
+            "launches": implied(**total), "checked": probe.checked,
+            "elements": elements,
+            "reckoned_bytes": train_reckoning(elements, channels)}
+
+
+def train_main_path(dev, max_err) -> dict:
+    """The training path at full width (TRAIN_ARGS): the fp32 run, the RNS
+    run (its step TRAIN_CHECK_STEP held kernel by kernel against the plain
+    versions), their per-step loss drift; the RRNS run with a wire residue
+    corrupted at TRAIN_INJECT_STEP against the same run without one, bit
+    for bit; then the rns_gradient_training example at smoke size."""
+    import torch
+
+    from repro_torch import rns_gradient_training
+    from repro_torch.kernels import ops
+
+    runs, launches = {}, Counter()
+
+    def run(label, flags=(), check=None, keep=False):
+        r = train_run(dev, max_err, label, flags, check)
+        launches.update(r["launches"])
+        s = r["summary"]
+        emit({"phase": "train", "run": label, "seconds": r["seconds"],
+              "elements": r["elements"], "losses": s["losses"],
+              "step_ms_median": statistics.median(s["step_ms"]),
+              "tokens_per_s_median": statistics.median(s["tokens_per_s"]),
+              "max_memory_allocated": s["max_memory_allocated"],
+              "reckoned_bytes": r["reckoned_bytes"],
+              "launches": r["launches"], "checked": r["checked"]})
+        runs[label] = s
+        return r["params"] if keep else None
+
+    run("fp32")
+    run("rns", ("--rns-allreduce",), check=TRAIN_CHECK_STEP)
+    drift = max(abs(a - b) for a, b in zip(runs["rns"]["losses"],
+                                           runs["fp32"]["losses"]))
+    require(drift < TRAIN_MAX_DRIFT, f"train: RNS loss drift {drift}")
+    hit = run("rns_correct_injected",
+              ("--rns-correct", "--inject-corrupt-step",
+               str(TRAIN_INJECT_STEP)), keep=True)
+    clean = run("rns_correct", ("--rns-correct",), keep=True)
+    steps = len(runs["rns_correct"]["losses"])
+    require(runs["rns_correct_injected"]["repaired"]
+            == [int(i == TRAIN_INJECT_STEP) for i in range(steps)]
+            and runs["rns_correct"]["repaired"] == [0] * steps,
+            "train: repaired counts")
+    require(runs["rns_correct_injected"]["unrepairable"]
+            == runs["rns_correct"]["unrepairable"] == [0] * steps,
+            "train: unrepairable counts")
+    for (name, a), (_, b) in zip(_named(hit), _named(clean)):
+        require(bits_equal(a, b), f"train: {name} after the repaired run "
+                "differs from the run without the fault")
+    del hit, clean
+
+    # the example at smoke size, on the card
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ex = rns_gradient_training.main(dev, verbose=False)
+    example_s = time.perf_counter() - t0
+    got = launch_counts(ops)
+    n = rns_gradient_training.STEPS
+    require(got == implied(codec_encode=n, codec_decode=n),
+            f"rns_gradient_training launches {got}")
+    emit({"phase": "train", "run": "rns_gradient_training",
+          "seconds": example_s, "drift": ex["drift"],
+          "first_loss": ex["l_rns"][0], "last_loss": ex["l_rns"][-1],
+          "launches": got})
+    return {"launches": implied(**launches), "drift": drift,
+            "example_drift": ex["drift"]}
 
 
 # ------------------------------------------------ slice 3: the crypto lane
@@ -1357,7 +1667,7 @@ def main() -> int:
     paper = make_paper_bases()[0]
     width_run("paper_n137", paper, PAPER_BATCH)
     width_run("quickstart_n8", make_base(8, bits=15), SMALL_BATCH)
-    launches = implied(**counts())   # summed over the three main paths
+    launches = implied(**counts())   # summed over the four main paths
     emit({"phase": "main", "step": "total", "launches": counts()})
 
     # ------------------------------------ 5. codec: slice 2's main path
@@ -1375,6 +1685,12 @@ def main() -> int:
           **codec_run})
     emit({"phase": "codec", "step": "replicas", **codec_replicas(dev)})
     emit({"phase": "codec", "step": "rrns", **codec_rrns(dev)})
+
+    # ---------------------------------- 5b. train: slice 4's main path
+    train = train_main_path(dev, max_err)
+    for k in launches:
+        launches[k] += train["launches"][k]
+    emit({"phase": "train", "step": "total", **train})
 
     # ------------------------------------- 6. crypto: slice 3's main path
     t0 = time.perf_counter()
@@ -1476,7 +1792,7 @@ def main() -> int:
     # versions walk it in CHUNK-element pieces, as the main path's checks do
     codec = GradCodec.make(world=REPLICAS)
     enc, enc_kw, dec, dec_kw = codec_tables(codec)
-    flat = torch.cat([seeded_grad(MODEL_TREE[name], grad_seed(1, i), dev)
+    flat = torch.cat([seeded_grad(model_tree()[name], grad_seed(1, i), dev)
                       .view(-1) for i, name in enumerate(leaf_order())])
     wire = codec_encode_kernel_call(flat, *enc, **enc_kw)
     B, nch, n = flat.numel(), wire.shape[0], codec.base.n

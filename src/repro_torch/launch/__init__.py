@@ -1,2 +1,3 @@
-"""Command-line entry points.  For now ``serve`` (the crypto family of the serve
-CLI); training and the rest of serving come with their slices."""
+"""Command-line entry points: ``train`` (the training driver, with the RNS
+gradient all-reduce) and ``serve`` (the crypto family of the serve CLI);
+the rest of serving comes with its slice."""

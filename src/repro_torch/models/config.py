@@ -1,0 +1,139 @@
+"""Model configuration — one dataclass covers all ten families of the
+registry (``repro_torch.configs``).
+
+Families: dense (GQA/MQA transformer, optional sliding window), moe,
+ssm (Mamba2/SSD), hybrid (Mamba2 + shared attention), encdec (whisper
+backbone, stub audio frontend), vlm (LM backbone + stub patch embeddings).
+The port runs the dense family; the others raise in ``models.model``.
+
+Every field of the reference's dataclass is kept, so the registry's configs
+and their ``smoke()`` reductions are the same values in both packages.  The
+port does not act on these yet: ``kv_quant`` and ``window_cache`` (the serve
+caches), ``seq_parallel`` and ``zero1`` (sharding), ``attn_impl`` (one
+attention route, ``models/attention.py``) and ``remat_policy`` (``remat``
+recomputes each layer whole, the "nothing" policy).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str               # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    act: str = "swiglu"       # swiglu | geglu
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+
+    # sliding-window attention (gemma3): every `global_every`-th layer is
+    # global, the rest attend within `window`.
+    window: int = 0
+    global_every: int = 0
+    window_cache: bool = True   # grouped window-sized KV cache for local layers
+                                # (False = full-length cache + mask only; the
+                                # §Perf baseline)
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    expert_dff: int = 0
+    capacity_factor: float = 1.25
+
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    ssm_conv: int = 4
+
+    # hybrid (zamba2): one shared attention block applied after every
+    # `attn_every` SSM layers.
+    attn_every: int = 0
+
+    # enc-dec (whisper): encoder depth and stub-frontend frame count.
+    enc_layers: int = 0
+    enc_frames: int = 0
+
+    # vlm (internvl): stub patch-embedding prefix length.
+    n_patches: int = 0
+
+    # numerics / training
+    kv_quant: bool = False      # int8 KV cache (dense/vlm decode; §Perf)
+    attn_impl: str = "vjp"      # vjp | unrolled (§Perf baseline) | scan
+    dtype: str = "bfloat16"     # compute dtype
+    param_dtype: str = "float32"
+    remat: bool = True
+    remat_policy: str = "nothing"  # nothing | dots (save matmul outputs)
+    seq_parallel: bool = False  # Korthikanti-style: residual/norm activations
+                                # shard over (model x sequence); AG/RS pairs
+                                # replace the TP all-reduce (same bytes, 16x
+                                # smaller saved activations)
+    zero1: bool = True
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // max(self.n_kv, 1)
+
+    def validate(self):
+        if self.n_heads and self.n_kv:
+            assert self.n_heads % self.n_kv == 0
+        if self.family in ("ssm", "hybrid"):
+            assert self.ssm_state > 0 and self.d_inner % self.ssm_headdim == 0
+        if self.family == "moe":
+            assert self.n_experts > 0 and self.top_k > 0 and self.expert_dff > 0
+        if self.family == "encdec":
+            assert self.enc_layers > 0 and self.enc_frames > 0
+        if self.family == "vlm":
+            assert self.n_patches > 0
+        if self.window:
+            assert self.global_every > 0
+        return self
+
+    def smoke(self) -> "ModelConfig":
+        """A reduced same-family config for CPU smoke tests."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=min(self.n_layers, 2 * max(self.global_every, self.attn_every, 1)),
+            d_model=128,
+            n_heads=max(4, min(self.n_heads, 4)),
+            n_kv=1 if self.n_kv == 1 else 2,
+            head_dim=32,
+            d_ff=256,
+            vocab=512,
+            window=min(self.window, 64) if self.window else 0,
+            n_experts=min(self.n_experts, 8) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            n_shared=min(self.n_shared, 1) if self.n_shared else 0,
+            expert_dff=64 if self.expert_dff else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else 64,
+            ssm_chunk=16 if self.ssm_state else 128,
+            enc_layers=min(self.enc_layers, 2) if self.enc_layers else 0,
+            enc_frames=min(self.enc_frames, 32) if self.enc_frames else 0,
+            n_patches=min(self.n_patches, 16) if self.n_patches else 0,
+            dtype="float32",
+            param_dtype="float32",
+            remat=False,
+            zero1=False,
+        )
