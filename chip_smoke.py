@@ -84,6 +84,30 @@ prints one JSON object per line:
                verified, and one wire codeword corrupted, detected and
                repaired.  Then ``RNSMontgomery`` modexp/modmul on one
                RSA-2048 N and the ``rns_modmul`` example on the card;
+6b. serve    — slice 5, the LLM serve lane at full width: gemma3-1b
+               (26 layers, d 1152, vocab 262,144, bf16 compute over f32
+               parameters, random weights from seed 0) through the port's
+               serve CLI ``repro_torch.launch.serve.main`` (SERVE_ARGS): 8
+               slots of 2048 positions, 16 requests of Poisson(1024)-token
+               prompts and 64 new tokens, ``--rns-verify`` with one wire
+               fault injected.  Checked: every request and token served,
+               every ``jit_traces`` value 1, all 16 fingerprints verified
+               and the fault detected, repaired and re-verified, exactly one
+               codec_encode launch per admission and per retirement, the
+               kernel on one real fingerprint against its plain version bit
+               for bit; three requests re-run alone through a fresh engine
+               give the same tokens and KV rows bit for bit; two requests'
+               engine logits (the last prompt position and every decode
+               step) against a teacher-forced ``train_logits`` over prompt +
+               out[:-1], within SERVE_LOGIT_TOL of its largest |logit|, and
+               every token whose top-2 margin there exceeds the difference
+               equal to the forward's argmax.  Measured (``ServeProbe``):
+               wall s and tokens/s, each decode step between CUDA events and
+               the host's time to enqueue it, each 256-token prefill chunk,
+               TTFT in ticks and ms, a fingerprint (``_fp_impl`` and the
+               encode), peak device memory above the run's start.  Then a short ``llm,crypto`` run
+               on one engine (SERVE_MIXED_ARGS), every crypto result against
+               Python's big ints;
 7. timing    — CUDA-event medians of each kernel and its plain version at
                the main-path shapes: ``ms`` is one launch between two
                events, the wrapper's host work before the launch included;
@@ -107,8 +131,9 @@ prints one JSON object per line:
                this tree, run both trees' chip_smoke.py in one call to the
                card (parent, change, change, parent) and read the rows;
 8. kernels   — one line listing every ported kernel, its launches summed
-               over the four main paths (slice 1, the codec steps, the
-               full-width training runs, the crypto lane) and one timing
+               over the five main paths (slice 1, the codec steps, the
+               full-width training runs, the crypto lane, the serve runs)
+               and one timing
                row: mrc and modmul at the
                paper's width, compare on the one column where 17,588 of its
                17,657 launches run (the divmods' and the canonicalisations'
@@ -230,6 +255,32 @@ DIVMOD_SHAPE = "divmod_n138"
 # cheapest step (one register slot a lane: 16 < n <= 32), for the latency
 # floor of the divmod's column.
 FLOOR_NS = (17, 32)
+# Slice 5, the LLM serve lane: gemma3-1b at full width through the port's
+# serve CLI (``repro_torch.launch.serve.main``), 8 slots of 2048 positions,
+# 16 requests of Poisson(1024)-token prompts (past the 512-token window of
+# 5 layers in 6) and 64 new tokens each, RRNS fingerprints verified and one
+# wire fault injected, random weights from seed 0.
+SERVE_ARGS = ("--arch", "gemma3-1b", "--no-smoke", "--slots", "8",
+              "--cache-len", "2048", "--prefill-chunk", "256",
+              "--requests", "16", "--prompt-mean", "1024", "--max-new", "64",
+              "--arrival-rate", "0.5", "--rns-verify",
+              "--inject-wire-corrupt", "--seed", "0", "--device", DEVICE)
+SERVE_SOLO_RIDS = (0, 7, 15)   # re-run alone: batching invariance
+SERVE_CHECK_RIDS = (7, 15)     # held against a teacher-forced forward
+# the engine's bf16 logits against the forward's: at most this share of the
+# forward's largest |logit| apart (bf16 rounds each at 2**-8 relative, and
+# the chunked prefill and the decode steps round other products than one
+# forward over the whole sequence does)
+SERVE_LOGIT_TOL = 2.0 ** -4
+# both families on one engine, on a smaller LLM workload
+SERVE_MIXED_ARGS = ("--arch", "gemma3-1b", "--no-smoke", "--slots", "4",
+                    "--cache-len", "512", "--prefill-chunk", "128",
+                    "--requests", "4", "--prompt-mean", "200",
+                    "--max-new", "8", "--arrival-rate", "0.5",
+                    "--families", "llm,crypto", "--crypto-slots", "4",
+                    "--crypto-requests", "8", "--crypto-limbs", "8",
+                    "--crypto-exp-bits", "32", "--rns-verify", "--seed", "1",
+                    "--device", DEVICE)
 ORACLE_CHUNK = 16                  # pow() calls per process-pool task
 # Card cycles to sleep before a queued timing: longer than the host takes to
 # enqueue ten launches of any kernel timed (about 2 ms at 1.98 GHz).
@@ -1447,6 +1498,307 @@ def crypto_frontends(dev) -> dict:
             "example_launches": got_ex}
 
 
+# ---------------------------------------------- slice 5: the LLM serve lane
+class ServeProbe:
+    """Instrumentation of ``repro_torch.serve.batcher`` around one run of
+    the serve driver.  It wraps the model calls the engine makes (the
+    module's ``decode_step`` and ``extend_step``) and three engine methods
+    (``submit``, ``_prefill_into``, ``step``): CUDA events and the host
+    clock around each decode step (the events' span is the step; the host
+    clock is the time to enqueue it, the call does not wait for the card)
+    and around each prefill chunk; for each rid in ``keep_logits`` a copy
+    of its logit row from its admission's last chunk and from each decode
+    step (kept on the card, for the teacher-forced check); the wall time of
+    each submit and first token (TTFT in ms; the first token ends in a host
+    read); and at the retirement of each rid in ``keep_rows`` a copy of its
+    written KV span [0, plen + n_out - 1)."""
+
+    def __init__(self, keep_rows=(), keep_logits=()):
+        from repro_torch.serve import batcher
+
+        self.batcher, self.keep_rows = batcher, set(keep_rows)
+        self.keep_logits = set(keep_logits)
+        self.decode, self.decode_host, self.chunks = [], [], []
+        self.logits = {rid: [] for rid in self.keep_logits}
+        self.prefill_logits = {}
+        self.t_submit, self.t_first, self.rows = {}, {}, {}
+        self.engine, self.prefilling = None, None
+
+    def __enter__(self):
+        B = self.batcher.ContinuousBatcher
+        self.orig = {"decode_step": self.batcher.decode_step,
+                     "extend_step": self.batcher.extend_step,
+                     "submit": B.submit, "_prefill_into": B._prefill_into,
+                     "step": B.step}
+        probe = self
+
+        def submit(eng, req):
+            probe.t_submit[req.rid] = time.perf_counter()
+            return probe.orig["submit"](eng, req)
+
+        def prefill_into(eng, slot, now):
+            probe.prefilling = slot.req.rid
+            out = probe.orig["_prefill_into"](eng, slot, now)
+            probe.t_first[probe.prefilling] = time.perf_counter()
+            return out
+
+        def step(eng, now=0.0):
+            probe.engine = eng
+            retired = probe.orig["step"](eng, now)
+            for r in retired:
+                if r.rid in probe.keep_rows:
+                    end = len(r.prompt) + len(r.out) - 1
+                    probe.rows[r.rid] = tuple(
+                        eng.cache[n][:, r.slot_index, :end].clone()
+                        for n in ("k", "v"))
+            return retired
+
+        self.batcher.decode_step = self._decode_step
+        self.batcher.extend_step = self._extend_step
+        B.submit, B._prefill_into, B.step = submit, prefill_into, step
+        return self
+
+    def __exit__(self, *exc):
+        B = self.batcher.ContinuousBatcher
+        self.batcher.decode_step = self.orig["decode_step"]
+        self.batcher.extend_step = self.orig["extend_step"]
+        for name in ("submit", "_prefill_into", "step"):
+            setattr(B, name, self.orig[name])
+
+    def _timed(self, fn, *args, **kw):
+        import torch
+
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = fn(*args, **kw)
+        e1.record()
+        return out, (e0, e1), time.perf_counter() - t
+
+    def _decode_step(self, cfg, params, cache, tokens, pos):
+        (logits, cache), ev, host = self._timed(
+            self.orig["decode_step"], cfg, params, cache, tokens, pos)
+        self.decode.append(ev)
+        self.decode_host.append(host)
+        for s in self.engine.sched.slots:
+            if s.state == "DECODE" and s.req.rid in self.keep_logits:
+                self.logits[s.req.rid].append(logits[s.index].clone())
+        return logits, cache
+
+    def _extend_step(self, cfg, params, cache, tokens, pos, **kw):
+        (logits, cache), ev, _ = self._timed(
+            self.orig["extend_step"], cfg, params, cache, tokens, pos, **kw)
+        self.chunks.append(ev)
+        if self.prefilling in self.keep_logits:
+            self.prefill_logits[self.prefilling] = logits[0, 0].clone()
+        return logits, cache
+
+    def logits_of(self, rid):
+        """The engine's logit rows of ``rid``, in order: the admission's
+        last prompt position, then each decode step's row."""
+        import torch
+
+        return torch.stack([self.prefill_logits[rid], *self.logits[rid]])
+
+
+def serve_run(argv, keep_rows=(), keep_logits=()):
+    """One run of ``repro_torch.launch.serve.main`` on ``argv`` under a
+    ServeProbe, its printed report captured and checked against the one it
+    returns; the launch counts set to 0 just before it and read just after,
+    and the peak device memory of the run above what was allocated when it
+    started (the earlier phases' live tensors)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    ops.reset_launches()
+    with ServeProbe(keep_rows, keep_logits) as probe, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        report, engine = launch_serve.main(list(argv))
+        seconds = time.perf_counter() - t0
+    launches = launch_counts(ops)
+    require(json.loads(out.getvalue()) == report,
+            "serve: the CLI's printed report")
+    return {"report": report, "engine": engine, "probe": probe,
+            "seconds": seconds, "launches": launches,
+            "memory_allocated_at_start": at_start,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "peak_memory_of_run": torch.cuda.max_memory_allocated() - at_start}
+
+
+def serve_main_path(dev, max_err) -> dict:
+    """Slice 5's main path: gemma3-1b at full width through the serve CLI
+    (SERVE_ARGS), its report and fingerprints checked; the codec_encode
+    kernel on one real fingerprint against its plain version; three
+    requests re-run alone through a fresh engine of the same shape (tokens
+    and KV rows bit for bit); two requests' engine logits against a
+    teacher-forced forward; the host and card times of the path; then a
+    short mixed llm,crypto run against Python's big ints."""
+    import torch
+
+    from repro_torch.kernels.codec_encode import (codec_encode_kernel_call,
+                                                  codec_encode_plain)
+    from repro_torch.models import train_logits
+    from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.serve.scheduler import Request
+
+    run = serve_run(SERVE_ARGS, keep_rows=SERVE_SOLO_RIDS,
+                    keep_logits=SERVE_CHECK_RIDS)
+    rep, eng, probe = run["report"], run["engine"], run["probe"]
+    n_req = int(SERVE_ARGS[SERVE_ARGS.index("--requests") + 1])
+    max_new = int(SERVE_ARGS[SERVE_ARGS.index("--max-new") + 1])
+    require(rep["requests"] == n_req and rep["tokens_out"] == n_req * max_new,
+            f"serve: {rep['requests']} requests, {rep['tokens_out']} tokens")
+    require(set(rep["jit_traces"].values()) == {1},
+            f"serve: jit_traces {rep['jit_traces']}")
+    rns = rep["rns"]
+    require(rns["slots_verified"] == n_req and rns["slots_failed"] == 0
+            and rns["wire_ok"] == n_req, f"serve: rns {rns}")
+    require(rns["injected_detected"] and rns["injected_reverified"]
+            and rns["injected_repair"] == {"repaired": 1,
+                                           "unrecoverable": 0},
+            f"serve: injected wire fault {rns}")
+    # one fingerprint encode per admission and per retirement
+    require(run["launches"]["codec_encode"] == 2 * n_req,
+            f"serve: launches {run['launches']}")
+
+    # the kernel on one real fingerprint (the last retired row is intact)
+    last = eng.sched.completed[-1]
+    fp = eng._fp_fn(eng.cache, last.slot_index, len(last.prompt))
+    enc, enc_kw, _, _ = codec_tables(eng.codec)
+    got = codec_encode_kernel_call(fp, *enc, **enc_kw)
+    want = codec_encode_plain(fp, *enc, **enc_kw)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    max_err["codec_encode"] = max(max_err["codec_encode"], err)
+    require(err == 0 and torch.equal(got, want),
+            "serve: codec_encode on a fingerprint differs from its plain "
+            "version")
+    require(eng.verify_request(last), "serve: re-verify the last request")
+    fp_ms = median_ms(lambda: eng.codec.encode_array(
+        eng._fp_fn(eng.cache, last.slot_index, len(last.prompt)),
+        channel_major=True))
+
+    # batching invariance: the same requests alone, on a fresh engine
+    done = {r.rid: r for r in eng.sched.completed}
+    cfg, params = eng.cfg, eng.params
+    solo = ContinuousBatcher(
+        cfg, params, n_slots=eng.sched.n_slots, cache_len=eng.sched.cache_len,
+        prefill_chunk=eng.prefill_chunk, rns_verify=True)
+    invariance = []
+    for rid in SERVE_SOLO_RIDS:
+        r = done[rid]
+        alone = Request(rid=rid, prompt=list(r.prompt), max_new=r.max_new)
+        solo.submit(alone)
+        solo.run_to_completion()
+        end = len(r.prompt) + len(r.out) - 1
+        rows = tuple(solo.cache[n][:, alone.slot_index, :end]
+                     for n in ("k", "v"))
+        same_tokens = alone.out == r.out
+        same_rows = all(torch.equal(a, b)
+                        for a, b in zip(rows, probe.rows[rid]))
+        require(same_tokens, f"serve: rid {rid} alone gives other tokens")
+        require(same_rows, f"serve: rid {rid} alone gives other KV rows")
+        require(solo.verify_log[rid], f"serve: rid {rid} alone verifies")
+        invariance.append({"rid": rid, "plen": len(r.prompt),
+                           "slot_mixed": r.slot_index,
+                           "tokens_equal": same_tokens,
+                           "kv_rows_bitwise": same_rows})
+    require(set(solo.jit_cache_sizes().values()) == {1},
+            "serve: the solo engine's census")
+    del solo
+
+    # cache consistency: the engine's logits against a teacher-forced
+    # forward over prompt + out[:-1]
+    consistency = []
+    with torch.inference_mode():
+        for rid in SERVE_CHECK_RIDS:
+            r = done[rid]
+            plen = len(r.prompt)
+            toks = torch.tensor([r.prompt + r.out[:-1]], device=dev)
+            fwd, _ = train_logits(cfg, params, {"tokens": toks})
+            fwd = fwd[0, plen - 1:].float()
+            got = probe.logits_of(rid).float()
+            require(got.shape == fwd.shape,
+                    f"serve: rid {rid} logits {tuple(got.shape)}")
+            diff = float((got - fwd).abs().max())
+            scale = float(fwd.abs().max())
+            top2 = fwd.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            argmax = fwd.argmax(dim=-1).tolist()
+            decided = [i for i in range(len(r.out))
+                       if float(margin[i]) > diff]
+            agree = sum(r.out[i] == argmax[i] for i in decided)
+            require(diff <= SERVE_LOGIT_TOL * scale,
+                    f"serve: rid {rid} logits differ by {diff}")
+            require(agree == len(decided),
+                    f"serve: rid {rid}: {len(decided) - agree} decided "
+                    "tokens differ from the forward's argmax")
+            consistency.append({"rid": rid, "plen": plen,
+                                "positions": len(r.out),
+                                "max_abs_diff": diff, "max_abs_logit": scale,
+                                "tolerance": SERVE_LOGIT_TOL * scale,
+                                "decided_tokens": len(decided),
+                                "argmax_equal_all": argmax == r.out})
+            del fwd
+
+    decode_ms = [a.elapsed_time(b) for a, b in probe.decode]
+    chunk_ms = [a.elapsed_time(b) for a, b in probe.chunks]
+    ttft_ms = [1e3 * (probe.t_first[k] - probe.t_submit[k])
+               for k in probe.t_first]
+    main_run = {
+        "seconds": run["seconds"], "wall_s": rep["wall_s"],
+        "tok_per_s": rep["tok_per_s"], "steps": rep["steps"],
+        "max_concurrency": rep["max_concurrency"],
+        "decode_steps": len(decode_ms),
+        "decode_ms_median": statistics.median(decode_ms),
+        "decode_ms_max": max(decode_ms),
+        "decode_host_ms_median": 1e3 * statistics.median(probe.decode_host),
+        "prefill_chunks": len(chunk_ms),
+        "prefill_chunk_ms_median": statistics.median(chunk_ms),
+        "ttft_ticks": rep["ttft_ticks"],
+        "ttft_ms": {"median": statistics.median(ttft_ms),
+                    "max": max(ttft_ms)},
+        "fingerprint_ms": fp_ms, "jit_traces": rep["jit_traces"],
+        "rns": rns, "launches": run["launches"],
+        **{k: run[k] for k in ("memory_allocated_at_start",
+                               "max_memory_allocated", "peak_memory_of_run")},
+        "invariance": invariance, "consistency": consistency}
+    del eng, probe, run, params
+
+    # the mixed families: a short llm,crypto run
+    mixed = serve_run(SERVE_MIXED_ARGS)
+    mrep = mixed["report"]
+    n_crypto = int(SERVE_MIXED_ARGS[
+        SERVE_MIXED_ARGS.index("--crypto-requests") + 1])
+    require(mrep["crypto"]["oracle_ok"] == n_crypto
+            and mrep["crypto"]["oracle_failed"] == 0,
+            f"serve: mixed crypto {mrep['crypto']}")
+    require(mrep["rns"]["slots_failed"] == 0
+            and mrep["rns"]["slots_verified"] == mrep["requests"],
+            f"serve: mixed rns {mrep['rns']}")
+    require(set(mrep["jit_traces"].values()) <= {0, 1},
+            f"serve: mixed jit_traces {mrep['jit_traces']}")
+    del mixed["engine"]
+    total = Counter(main_run["launches"])
+    total.update(mixed["launches"])
+    return {"main": main_run,
+            "mixed": {"seconds": mixed["seconds"], "requests":
+                      mrep["requests"], "crypto": mrep["crypto"],
+                      "rns": mrep["rns"], "jit_traces": mrep["jit_traces"],
+                      "launches": mixed["launches"]},
+            "launches": implied(**total)}
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -1667,7 +2019,7 @@ def main() -> int:
     paper = make_paper_bases()[0]
     width_run("paper_n137", paper, PAPER_BATCH)
     width_run("quickstart_n8", make_base(8, bits=15), SMALL_BATCH)
-    launches = implied(**counts())   # summed over the four main paths
+    launches = implied(**counts())   # summed over the five main paths
     emit({"phase": "main", "step": "total", "launches": counts()})
 
     # ------------------------------------ 5. codec: slice 2's main path
@@ -1704,6 +2056,31 @@ def main() -> int:
         launches[k] += crypto_run["launches"][k]
     emit({"phase": "crypto", "step": "lane", **crypto_run})
     emit({"phase": "crypto", "step": "frontends", **crypto_frontends(dev)})
+
+    # ---------------------------------------- 6b. serve: slice 5's main path
+    serve = serve_main_path(dev, max_err)
+    for k in launches:
+        launches[k] += serve["launches"][k]
+    main_run = serve["main"]
+    emit({"phase": "serve", "step": "main", "args": list(SERVE_ARGS),
+          **{k: v for k, v in main_run.items()
+             if k not in ("invariance", "consistency")}, "card": card})
+    emit({"phase": "serve", "step": "invariance",
+          "requests": main_run["invariance"]})
+    emit({"phase": "serve", "step": "consistency",
+          "requests": main_run["consistency"]})
+    emit({"phase": "serve", "step": "mixed", "args": list(SERVE_MIXED_ARGS),
+          **serve["mixed"]})
+    print(f"serve: gemma3-1b full width, {card}: wall "
+          f"{main_run['wall_s']} s, {main_run['tok_per_s']} tokens/s, decode "
+          f"step {main_run['decode_ms_median']:.3f} ms (CUDA events, median) "
+          f"and {main_run['decode_host_ms_median']:.3f} ms host to enqueue, "
+          f"prefill chunk of 256 {main_run['prefill_chunk_ms_median']:.3f} "
+          f"ms, TTFT {main_run['ttft_ticks']['p50']} ticks / "
+          f"{main_run['ttft_ms']['median']:.1f} ms (median), fingerprint "
+          f"{main_run['fingerprint_ms']:.3f} ms, peak memory "
+          f"{main_run['peak_memory_of_run']} bytes above the run's start",
+          flush=True)
 
     # -------------------------------------------------------- 7. timing
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -1,4 +1,5 @@
-"""Attention for the training forward: project, rotate, attend, project.
+"""Attention: the training forward (project, rotate, attend, project) and
+the cached decode path of the serve engine.
 
 ``attention`` computes what the reference's ``flash_attention`` computes
 (``repro/models/attention.py``, ``_flash_fwd_chunks`` and its hand-written
@@ -11,14 +12,24 @@ here; autograd over these matmuls is the backward pass.  The chunked online
 softmax only bounds the reference's live memory; the full rows give the
 same values up to the order of f32 sums (and, in bf16, where the
 probabilities round).
+
+Decode (``decode_attention``, ``decode_attention_ring``, ``attn_decode``)
+attends one or more new tokens against a KV cache: a full-length cache with
+a validity mask, or a ring buffer of W slots for a sliding-window layer, as
+the reference's decode half does (``attention.py:354-499``).  The new K/V
+are written into the cache tensors in place.  XLA clamps the start of a
+``dynamic_update_slice`` that would run past the row; a torch index write
+does not, and ``write_positions`` refuses such a write before it is made.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .layers import init_linear, rope
 
-__all__ = ["init_attn", "attention", "attn_forward"]
+__all__ = ["init_attn", "attention", "attn_forward", "decode_attention",
+           "decode_attention_ring", "attn_decode", "write_positions"]
 
 NEG_INF = -1e30
 
@@ -63,15 +74,191 @@ def attention(q, k, v, *, causal: bool = True, window=None):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
-def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
-                 window=None):
-    """Project -> rope -> attend -> project.  x: (b, s, d)."""
+def _project(p, x, heads, kv, hd):
+    """q, k, v projections of x: (b, s, d), in x's dtype."""
     dt = x.dtype
     b, s, d = x.shape
     q = (x @ p["wq"].to(dt).reshape(d, heads * hd)).view(b, s, heads, hd)
     k = (x @ p["wk"].to(dt).reshape(d, kv * hd)).view(b, s, kv, hd)
     v = (x @ p["wv"].to(dt).reshape(d, kv * hd)).view(b, s, kv, hd)
+    return q, k, v
+
+
+def _out(p, o):
+    """The output projection of o: (b, s, h, hd)."""
+    b, s, h, hd = o.shape
+    wo = p["wo"].to(o.dtype)
+    return o.reshape(b, s, h * hd) @ wo.reshape(h * hd, wo.shape[-1])
+
+
+def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
+                 window=None, return_kv=False):
+    """Project -> rope -> attend -> project.  x: (b, s, d).  With
+    ``return_kv`` also the rotated keys and the values, (b, s, kv, hd)
+    each: what a prefill writes into the cache."""
+    q, k, v = _project(p, x, heads, kv, hd)
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
-    o = attention(q, k, v, causal=causal, window=window)
-    return o.reshape(b, s, heads * hd) @ p["wo"].to(dt).reshape(heads * hd, d)
+    out = _out(p, attention(q, k, v, causal=causal, window=window))
+    return (out, (k, v)) if return_kv else out
+
+
+def decode_attention(q, k_cache, v_cache, cur_len, *, window=None,
+                     kscale=None, vscale=None):
+    """Cached attention for one or more appended tokens over a linear cache.
+
+    q: (b, sq, h, hd); caches: (b, S, g, hd); ``cur_len``: the tokens in the
+    cache, the newest included — an int, or a ``(b,)`` tensor when the rows
+    sit at different positions (the continuous-batching slot layout).  Query
+    i of sq lives at position cur_len - sq + i and attends to the positions
+    j <= it (and j > it - window).  q is scaled in its own dtype and cast to
+    the cache's; scores are f32; the probabilities are cast to the cache's
+    dtype for the PV product.
+
+    int8 caches pass kscale/vscale (b, g): q stays in its dtype, the cache
+    is cast to it, and each scale multiplies after its contraction.
+    """
+    b, S, g, hd = k_cache.shape
+    sq, h = q.shape[1], q.shape[2]
+    r = h // g
+    f32 = torch.float32
+    cd = q.dtype if kscale is not None else k_cache.dtype
+    qg = (q.reshape(b, sq, g, r, hd) * hd ** -0.5).to(cd)
+    qg = qg.permute(0, 2, 3, 1, 4).to(f32)                # (b, g, r, sq, hd)
+    kg = k_cache.to(cd).permute(0, 2, 1, 3)[:, :, None].to(f32)
+    s = qg @ kg.transpose(-1, -2)                         # (b, g, r, sq, S)
+    if kscale is not None:
+        s = s * kscale[:, :, None, None, None]
+    dev = q.device
+    jpos = torch.arange(S, device=dev)
+    ipos = torch.arange(sq, device=dev)
+    if isinstance(cur_len, torch.Tensor):
+        qpos = cur_len.to(dev).reshape(-1, 1) - sq + ipos  # (b, sq)
+    else:
+        qpos = (int(cur_len) - sq + ipos)[None]           # (1, sq)
+    mask = jpos[None, None, :] <= qpos[..., None]
+    if window is not None:
+        mask &= jpos[None, None, :] > qpos[..., None] - window
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    vg = v_cache.to(cd).permute(0, 2, 1, 3)[:, :, None].to(f32)
+    o = p.to(cd).to(f32) @ vg                             # (b, g, r, sq, hd)
+    if vscale is not None:
+        o = o * vscale[:, :, None, None, None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention_ring(q, k_cache, v_cache, pos: int):
+    """Sliding-window decode over a ring of W slots; the newest token was
+    just written at slot pos mod W.  A slot holds logical position
+    pos - ((pos - slot) mod W) (floor mod, as ``jnp.mod``); it is valid
+    when that position is >= 0."""
+    b, W, g, hd = k_cache.shape
+    h = q.shape[2]
+    r = h // g
+    f32 = torch.float32
+    dt = k_cache.dtype
+    qg = (q.reshape(b, 1, g, r, hd) * hd ** -0.5).to(dt)
+    qg = qg.permute(0, 2, 3, 1, 4).to(f32)
+    kg = k_cache.permute(0, 2, 1, 3)[:, :, None].to(f32)
+    s = qg @ kg.transpose(-1, -2)                         # (b, g, r, 1, W)
+    slots = torch.arange(W, device=q.device)
+    logical = pos - torch.remainder(pos - slots, W)
+    s = s.masked_fill(logical < 0, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    vg = v_cache.permute(0, 2, 1, 3)[:, :, None].to(f32)
+    o = p.to(dt).to(f32) @ vg
+    return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
+
+
+def write_positions(pos, b: int, s: int, S: int, device):
+    """The first write position of each row, checked to lie in the row.
+
+    ``pos``: an int (every row at one position) or one per row, as host
+    data (a list, a numpy array or a CPU tensor) or a tensor on ``device``.
+    Returns an int, or an int64 ``(b,)`` tensor on ``device``.  Host values
+    are checked here: a write of s tokens from p needs 0 <= p and
+    p + s <= S.  A device tensor is not read back (that would wait for the
+    card); torch's own index check refuses a write outside the row."""
+    if isinstance(pos, int) or (
+            not isinstance(pos, torch.Tensor) and np.ndim(pos) == 0):
+        p = int(pos)
+        if p < 0 or p + s > S:
+            raise ValueError(f"a write of {s} token(s) at position {p} "
+                             f"leaves the cache row of {S} positions")
+        return p
+    if isinstance(pos, torch.Tensor) and pos.device != torch.device("cpu"):
+        if tuple(pos.shape) != (b,):
+            raise ValueError(f"per-row positions {tuple(pos.shape)}, "
+                             f"expected ({b},)")
+        return pos.to(device=device, dtype=torch.int64)
+    host = torch.as_tensor(np.asarray(pos), dtype=torch.int64)
+    if tuple(host.shape) != (b,):
+        raise ValueError(f"per-row positions {tuple(host.shape)}, "
+                         f"expected ({b},)")
+    if b and (int(host.min()) < 0 or int(host.max()) + s > S):
+        raise ValueError(f"a write of {s} token(s) at positions "
+                         f"{host.tolist()} leaves the cache rows of {S} "
+                         f"positions")
+    return host.to(device)
+
+
+def attn_decode(p, x, cache, pos, *, heads, kv, hd, theta, ring=False,
+                window=None, enc=None):
+    """Cached decode for one block: one token, a chunk, per-row positions.
+
+    cache: {"k": (b, S, g, hd), "v": ...} (S = W for a ring), optionally
+    int8 with "ks"/"vs" (b, g) scales.  x: (b, s, d), s >= 1 new tokens a
+    row; ``pos`` is the position of the FIRST new token — an int (every
+    row aligned) or one per row (see ``write_positions``).  s > 1 is the
+    chunked prefill-extend path: the tokens land at pos..pos+s-1 with
+    causal attention inside the chunk.  A ring cache takes an int position
+    and one token, written at slot pos mod W.  The new K/V are written
+    into ``cache``'s tensors in place; returns (out, the cache dict).
+    """
+    if enc is not None:
+        raise NotImplementedError(
+            "cross-attention decode belongs to the encdec family, which is "
+            "not ported yet (ROADMAP.md, queue 1)")
+    b, s, _ = x.shape
+    kc, vc = cache["k"], cache["v"]
+    S = kc.shape[1]
+    if ring:
+        if s != 1 or isinstance(pos, torch.Tensor) or np.ndim(pos) != 0:
+            raise ValueError("ring caches decode one token at one host "
+                             "position")
+        start = int(pos)
+    else:
+        start = write_positions(pos, b, s, S, x.device)
+    q, k_new, v_new = _project(p, x, heads, kv, hd)
+    steps = torch.arange(s, device=x.device)
+    if isinstance(start, torch.Tensor):
+        positions = start[:, None] + steps[None, :]
+    else:
+        positions = (start + steps).expand(b, s)
+    q = rope(q, positions, theta)
+    k_new = rope(k_new, positions, theta)
+    quant = "ks" in cache
+    if quant:
+        # the new token is quantized with the prefill's scales
+        k_new = torch.clamp(torch.round(k_new / cache["ks"][:, None, :, None]),
+                            -127, 127)
+        v_new = torch.clamp(torch.round(v_new / cache["vs"][:, None, :, None]),
+                            -127, 127)
+    if isinstance(start, torch.Tensor):
+        rows = torch.arange(b, device=x.device)[:, None]
+        kc[rows, positions] = k_new.to(kc.dtype)
+        vc[rows, positions] = v_new.to(vc.dtype)
+    else:
+        slot = start % S if ring else start
+        kc[:, slot:slot + s] = k_new.to(kc.dtype)
+        vc[:, slot:slot + s] = v_new.to(vc.dtype)
+    if ring:
+        o = decode_attention_ring(q, kc, vc, start)
+    else:
+        o = decode_attention(q, kc, vc, start + s, window=window,
+                             kscale=cache.get("ks"), vscale=cache.get("vs"))
+    out_cache = {"k": kc, "v": vc}
+    if quant:
+        out_cache["ks"], out_cache["vs"] = cache["ks"], cache["vs"]
+    return _out(p, o), out_cache

@@ -8,10 +8,10 @@ The port runs the dense family; the others raise in ``models.model``.
 
 Every field of the reference's dataclass is kept, so the registry's configs
 and their ``smoke()`` reductions are the same values in both packages.  The
-port does not act on these yet: ``kv_quant`` and ``window_cache`` (the serve
-caches), ``seq_parallel`` and ``zero1`` (sharding), ``attn_impl`` (one
-attention route, ``models/attention.py``) and ``remat_policy`` (``remat``
-recomputes each layer whole, the "nothing" policy).
+port does not act on these yet: ``seq_parallel`` and ``zero1`` (sharding),
+``attn_impl`` (one attention route, ``models/attention.py``) and
+``remat_policy`` (``remat`` recomputes each layer whole, the "nothing"
+policy).
 """
 from __future__ import annotations
 

@@ -3,12 +3,19 @@
     init_params(cfg, generator, device)          -> parameter tree
     abstract_params(cfg)                         -> the same tree on "meta"
     train_logits(cfg, params, batch)             -> (logits, aux_loss)
+    prefill(cfg, params, batch, cache_len)       -> (last_logits, cache)
+    decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
+    extend_step(cfg, params, cache, tokens, pos) -> (chunk_logits, cache)
     params_from_reference(cfg, tree, device)     -> the reference's params
 
 A parameter tree is a nested dict of tensors with the reference's leaf
-names and shapes (``repro.models.init_params``).  The port runs the dense
-family; the others (moe, vlm, ssm, hybrid, encdec) raise
-``NotImplementedError`` until their slices land (ROADMAP.md, queue 1).
+names and shapes (``repro.models.init_params``).  ``decode_step`` takes
+per-row ``(b,)`` positions, and ``extend_step`` appends a whole token chunk
+to a cache: together they carry the continuous-batching serve engine.  The
+three serving functions run under ``torch.inference_mode()`` and write the
+new K/V into the cache's tensors in place.  The port runs the dense family;
+the others (moe, vlm, ssm, hybrid, encdec) raise ``NotImplementedError``
+until their slices land (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -19,8 +26,8 @@ from ..dist import _tree
 from . import transformer
 from .config import ModelConfig
 
-__all__ = ["init_params", "abstract_params", "train_logits",
-           "params_from_reference"]
+__all__ = ["init_params", "abstract_params", "train_logits", "prefill",
+           "decode_step", "extend_step", "params_from_reference"]
 
 _PORTED = ("dense",)
 
@@ -56,6 +63,34 @@ def abstract_params(cfg: ModelConfig):
 def train_logits(cfg: ModelConfig, params, batch):
     _check_family(cfg)
     return transformer.decoder_only_logits(cfg, params, batch)
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, params, batch, cache_len: int):
+    _check_family(cfg)
+    return transformer.decoder_only_prefill(cfg, params, batch, cache_len)
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
+                pages=None, page_size=None):
+    _check_family(cfg)
+    return transformer.decoder_only_decode(cfg, params, cache, tokens, pos,
+                                           pages=pages, page_size=page_size)
+
+
+@torch.inference_mode()
+def extend_step(cfg: ModelConfig, params, cache, tokens, pos,
+                logit_index=None, pages=None, page_size=None,
+                valid_len=None, scratch=None):
+    """Append a token chunk (b, C) at positions pos..pos+C-1 to a linear
+    KV cache; returns (logits over all C positions — or just position
+    ``logit_index`` when given — and the cache)."""
+    _check_family(cfg)
+    return transformer.decoder_only_extend(
+        cfg, params, cache, tokens, pos, logit_index=logit_index,
+        pages=pages, page_size=page_size, valid_len=valid_len,
+        scratch=scratch)
 
 
 def params_from_reference(cfg: ModelConfig, tree, device="cuda"):

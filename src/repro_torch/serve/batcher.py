@@ -1,13 +1,11 @@
-"""The crypto half of the reference's continuous-batching serve engine
-(``src/repro/serve/batcher.py``), as ``CryptoEngine``.
-
-The reference's ``ContinuousBatcher`` serves two request families under one
-tick clock: LLM decode and the big-integer crypto lane (DESIGN.md §15).
-This module ports the crypto lane alone; the serve slice's
-``ContinuousBatcher`` will hold a ``CryptoEngine`` and forward its crypto
-calls to it.  The attribute names (``crypto``, ``crypto_ctx``,
-``crypto_state``, ``wire``, ``verify_log``) are the reference's, so that
-callers read both alike.
+"""The continuous-batching serve engine (``src/repro/serve/batcher.py``,
+the reference's DESIGN.md §12 and §15): ``CryptoEngine``, the big-integer
+crypto lane, and ``ContinuousBatcher``, the slot engine of the LLM lane,
+which holds a ``CryptoEngine`` when ``crypto_slots >= 1`` and forwards its
+crypto calls to it.  Both families then run under one tick clock and share
+one wire store and one ``verify_log``.  The attribute names (``sched``,
+``cache``, ``crypto``, ``crypto_ctx``, ``wire``, ``verify_log``) are the
+reference's, so that callers read both alike.
 
 Per tick, every RUN slot advances ``crypto_chunk`` ladder bits in one call
 of the lane's ``step`` (``crypto_chunk`` ladder-kernel launches on the
@@ -34,15 +32,19 @@ rebuilds the bad channel in place.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..core.array import _device
+from ..models import decode_step, extend_step
 from .crypto import (CryptoContext, CryptoLane, encode_exponent,
                      make_crypto_fns)
-from .serve_step import crypto_state_zeros
+from .scheduler import Slot, SlotScheduler
+from .serve_step import Traced, cache_zeros, crypto_state_zeros
 
-__all__ = ["CryptoEngine"]
+__all__ = ["CryptoEngine", "ContinuousBatcher"]
 
 
 class CryptoEngine:
@@ -80,7 +82,9 @@ class CryptoEngine:
                                  int(crypto_chunk))
         self.crypto_state = crypto_state_zeros(
             self.crypto_ctx, int(crypto_slots), self.device)
-        self._crypto_fns = make_crypto_fns(self.crypto_ctx, int(crypto_chunk))
+        self._crypto_fns = {
+            name: Traced(fn) for name, fn in
+            make_crypto_fns(self.crypto_ctx, int(crypto_chunk)).items()}
 
     # ------------------------------------------------------------ requests
     def _rid_held(self, rid) -> bool:
@@ -97,9 +101,9 @@ class CryptoEngine:
         """Queue one crypto-family request (validated on the host)."""
         family = getattr(req, "family", "llm")
         if family == "llm":
-            raise ValueError("llm-family requests need the ContinuousBatcher "
-                             "of the serve slice; this engine serves the "
-                             "'crypto' family")
+            raise ValueError("llm-family requests go to the "
+                             "ContinuousBatcher of the serve slice; this "
+                             "engine serves the 'crypto' family")
         if family != "crypto":
             raise ValueError(f"unknown request family {family!r}; "
                              f"expected 'llm' or 'crypto'")
@@ -255,6 +259,15 @@ class CryptoEngine:
                 self.verify_log.pop(r.rid, None)
         return done
 
+    def jit_cache_sizes(self) -> dict:
+        """Argument signatures per lane function (``serve_step.Traced``),
+        under the reference's report keys; every value stays 1."""
+        names = ["admit", "step", "final", "modmul", "divmod"]
+        if self.rns_verify:
+            names.append("fp")
+        return {("crypto_fingerprint" if name == "fp" else f"crypto_{name}"):
+                self._crypto_fns[name]._cache_size() for name in names}
+
     # ------------------------------------------------------ RNS integrity
     def _require_verify(self):
         if not self.rns_verify:
@@ -289,5 +302,463 @@ class CryptoEngine:
         """Fault injection for tests and the serve CLI: modular-bump one
         residue of a stored wire buffer (stays a syntactically valid residue
         so the corruption is only catchable by the redundant channels)."""
+        self._require_verify()
+        self.wire.corrupt(key, channel=channel, delta=delta, index=index)
+
+
+_SUPPORTED = ("dense", "moe")
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over one batched decode cache.
+
+    The batch axis of the decode cache is a pool of ``n_slots`` fixed-
+    capacity rows ("slots"), each row belonging to at most one request.  New
+    requests are admitted into FREE rows mid-decode: the engine
+    chunk-prefills the prompt through ``extend_step`` on a one-row solo
+    cache, splices the row into the pool, and the next decode step carries
+    the newcomer along with every running stream.  The decode step takes
+    per-row positions, so arrival and departure never change an argument's
+    shape: ``jit_cache_sizes()`` reports one signature per engine function
+    (``serve_step.Traced``).  Rows are computationally independent, so a
+    request's tokens and KV row are bitwise the same alone or packed
+    against any co-resident traffic.
+
+    ``rns_verify=True`` arms the RNS integrity path: at admission the engine
+    fingerprints the slot's immutable prompt region (per-layer K/V sums) and
+    encodes it through an RRNS ``GradCodec`` into a channel-major
+    ``RnsArray`` wire buffer held in a ``dist.fault.WireStore`` under the
+    request id (on a CUDA cache, through the codec_encode kernel).  Decode
+    never writes below a slot's prompt length, so at retirement the
+    recomputed fingerprint must match bitwise.  ``wire_ok`` detects a
+    corrupted stored buffer and ``repair_wire`` rebuilds the bad channel in
+    place (``dist.fault.repair_packed``).
+
+    Parameters
+    ----------
+    cfg, params : the model (the dense family; ``params`` on the device the
+        engine runs on).  Sliding-window archs are lowered to the masked
+        full-length cache layout (``window_cache=False``).
+    n_slots : rows of the batched cache = max concurrent requests.
+    cache_len : per-slot KV capacity; every request needs
+        ``len(prompt) + max_new <= cache_len``.
+    prefill_chunk : token-chunk size of the admission prefill loop.
+    prefill_buckets : optional ascending prompt-length buckets: admission
+        pads the prompt to the smallest bucket >= plen and runs one extend
+        call instead of the chunk loop (longer prompts fall back to it).
+    rns_verify : arm the RnsArray cache-integrity fingerprints.
+    crypto_slots, crypto_ctx, crypto_chunk : the crypto lane
+        (``CryptoEngine``); 0 slots (default) disables the family.
+
+    >>> from repro_torch.configs import get_config
+    >>> from repro_torch.models import init_params
+    >>> from repro_torch.serve.scheduler import Request
+    >>> cfg = get_config("gemma-2b").smoke()
+    >>> eng = ContinuousBatcher(cfg, init_params(cfg, 0, "cpu"),
+    ...                         n_slots=2, cache_len=32, prefill_chunk=8)
+    >>> eng.submit(Request(rid=0, prompt=[3, 1, 4, 1, 5], max_new=4))
+    >>> [(r.rid, len(r.out)) for r in eng.run_to_completion()]
+    [(0, 4)]
+    >>> eng.jit_cache_sizes()["decode"]         # one argument signature
+    1
+    """
+
+    def __init__(self, cfg, params, *, n_slots: int, cache_len: int,
+                 prefill_chunk: int = 32,
+                 prefill_buckets: tuple | None = None,
+                 rns_verify: bool = False,
+                 crypto_slots: int = 0, crypto_ctx=None,
+                 crypto_chunk: int = 8):
+        cfg.validate()
+        if cfg.family not in _SUPPORTED:
+            raise NotImplementedError(
+                f"continuous batching needs a linear-KV transformer family "
+                f"{_SUPPORTED}, not {cfg.family!r} (SSM/hybrid state and "
+                f"encoder caches are not slot-spliceable yet)"
+            )
+        if cfg.kv_quant:
+            raise NotImplementedError(
+                "int8 KV slots need per-slot scale re-estimation at "
+                "admission; run the batcher on the fp cache layout"
+            )
+        if cfg.window and cfg.window_cache:
+            # grouped ring caches can't take per-row positions; the masked
+            # full-length layout is semantically identical (more HBM)
+            cfg = dataclasses.replace(cfg, window_cache=False)
+        if cache_len > 512 and cache_len % 512:
+            lo, hi = cache_len // 512 * 512, -(-cache_len // 512) * 512
+            raise ValueError(
+                f"cache_len={cache_len} beyond one flash chunk must be a "
+                f"multiple of 512 (prefill eval_shape runs the chunked "
+                f"attention); nearest legal cache_len: {lo} or {hi}"
+            )
+        divisors = [d for d in range(1, cache_len + 1) if cache_len % d == 0]
+        if cache_len % prefill_chunk:
+            # a prompt padded to the chunk grid could otherwise run past
+            # the row, where the reference's update-slice clamp would
+            # shift the write window backwards over earlier positions
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} must divide "
+                f"cache_len={cache_len}; valid prefill_chunk values: "
+                f"{divisors}"
+            )
+        self.cfg, self.params = cfg, params
+        self.device = params["embed"].device
+        self.prefill_chunk = int(prefill_chunk)
+        self.rns_verify = bool(rns_verify)
+
+        self.prefill_buckets: tuple[int, ...] | None = None
+        if prefill_buckets is not None:
+            bks = tuple(sorted({int(b) for b in prefill_buckets}))
+            if not bks:
+                raise ValueError("prefill_buckets must name >= 1 bucket")
+            for b in bks:
+                if b < 1 or b > cache_len:
+                    raise ValueError(
+                        f"bucket {b} out of range 1..cache_len={cache_len}"
+                    )
+                if b > 512 and b % 512:
+                    raise ValueError(
+                        f"bucket {b} beyond one flash chunk must be a "
+                        f"multiple of 512 (the padded extend runs the "
+                        f"chunked attention)"
+                    )
+            self.prefill_buckets = bks
+            self.bucket_hits: dict[int, int] = {b: 0 for b in bks}
+            self.bucket_fallbacks = 0
+            self.bucket_pad_tokens = 0
+            self.bucket_real_tokens = 0
+
+        self.sched = SlotScheduler(n_slots, cache_len)
+        self._solo = cache_zeros(cfg, 1, cache_len, self.device)
+        self.cache = cache_zeros(cfg, n_slots, cache_len, self.device)
+
+        # The engine's functions; each keeps one argument signature for
+        # the engine's lifetime (fixed shapes; slot ids and positions are
+        # data).
+        self._extend_fn = Traced(
+            lambda p, c, t, pos, idx: extend_step(cfg, p, c, t, pos,
+                                                  logit_index=idx))
+        self._decode_fn = Traced(self._decode_impl)
+        self._insert_fn = Traced(self._insert_impl)
+        self._fp_fn = Traced(self._fp_impl) if rns_verify else None
+        if rns_verify:
+            from ..dist.fault import WireStore
+            from ..dist.grad_codec import GradCodec
+
+            # world=1: fingerprints are fresh encodings, wraps=0 repairs
+            self.codec = GradCodec.make(world=1, correct=True)
+            self.wire = WireStore(self.codec)
+            self.verify_log: dict = {}
+
+        # The crypto lane: a CryptoEngine on the same device, sharing this
+        # engine's codec, wire store and verify log (its keys are
+        # ("crypto", rid)).
+        self._crypto = None
+        if crypto_slots:
+            self._crypto = CryptoEngine(
+                crypto_slots=int(crypto_slots), crypto_ctx=crypto_ctx,
+                crypto_chunk=int(crypto_chunk), rns_verify=rns_verify,
+                device=self.device)
+            if rns_verify:
+                self._crypto.codec = self.codec
+                self._crypto.wire = self.wire
+                self._crypto.verify_log = self.verify_log
+        elif crypto_ctx is not None:
+            raise ValueError("crypto_ctx= given but crypto_slots=0; pass "
+                             "crypto_slots>=1 to enable the crypto lane")
+
+    # ------------------------------------------------- the crypto lane's view
+    @property
+    def crypto(self):
+        """The crypto lane (``CryptoLane``), or None when disarmed."""
+        return None if self._crypto is None else self._crypto.crypto
+
+    @property
+    def crypto_ctx(self):
+        return None if self._crypto is None else self._crypto.crypto_ctx
+
+    @property
+    def _wire(self) -> dict:
+        """Raw key -> RnsArray mapping of the wire store."""
+        return self.wire.raw
+
+    # ------------------------------------------------------ engine functions
+    def _decode_impl(self, params, cache, tokens, pos):
+        """One batched decode step + greedy sampling.  tokens: (B, 1),
+        pos: (B,) per-slot write positions."""
+        logits, cache = decode_step(self.cfg, params, cache, tokens, pos)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    @torch.inference_mode()
+    def _insert_impl(self, batch_cache, solo_cache, slot: int):
+        """Splice a freshly prefilled solo cache (batch 1) into row ``slot``
+        of the batched cache, in place (the "len" leaf is left alone)."""
+        for name, leaf in batch_cache.items():
+            if isinstance(leaf, torch.Tensor):
+                leaf[:, slot] = solo_cache[name][:, 0].to(leaf.dtype)
+        return batch_cache
+
+    @torch.inference_mode()
+    def _fp_impl(self, cache, slot: int, plen: int):
+        """Per-layer masked K/V sums over row ``slot``'s immutable prompt
+        region [0, plen) -> (2L,) f32 fingerprint vector."""
+        S = cache["k"].shape[2]
+        valid = (torch.arange(S, device=self.device) < plen).to(torch.float32)
+        sums = [(cache[name][:, slot].to(torch.float32)
+                 * valid[None, :, None, None]).sum(dim=(1, 2, 3))
+                for name in ("k", "v")]
+        return torch.cat(sums)
+
+    def _fresh_solo(self) -> dict:
+        """The solo cache, zeroed: each admission prefills from zeros, as
+        the reference's (functional) solo cache does."""
+        with torch.inference_mode():
+            for leaf in self._solo.values():
+                if isinstance(leaf, torch.Tensor):
+                    leaf.zero_()
+        return dict(self._solo, len=0)
+
+    def _tokens(self, rows) -> torch.Tensor:
+        return torch.tensor(rows, dtype=torch.int64, device=self.device)
+
+    # ------------------------------------------------------ admission path
+    def _rid_held(self, rid) -> bool:
+        """Is ``rid``'s verify state still live in EITHER family?  The
+        verify log is one rid-keyed dict shared across families."""
+        held = (
+            rid in self.verify_log
+            or any(q.rid == rid for q in self.sched.queue)
+            or any(s.req is not None and s.req.rid == rid
+                   for s in self.sched.slots)
+            or rid in self.wire
+        )
+        if self._crypto is not None:
+            held = held or self._crypto._rid_held(rid)
+        return held
+
+    def submit(self, req) -> None:
+        """Queue one request; dispatches on ``req.family`` ("llm" default
+        / "crypto" when the crypto lane is armed)."""
+        family = getattr(req, "family", "llm")
+        if family == "crypto":
+            if self._crypto is None:
+                raise ValueError(
+                    "engine built without crypto_slots=; pass "
+                    "crypto_slots>=1 to accept crypto-family requests"
+                )
+            self.crypto_ctx.validate(req)
+        elif family != "llm":
+            raise ValueError(f"unknown request family {family!r}; "
+                             f"expected 'llm' or 'crypto'")
+        if self.rns_verify and self._rid_held(req.rid):
+            # verify state is keyed on rid; refuse the collision
+            # before any slot is bound or device work runs
+            raise ValueError(
+                f"rid {req.rid} already holds verify state (queued, in "
+                f"flight, or retired-undrained); use unique rids, or "
+                f"drain_completed() between reuses"
+            )
+        if family == "crypto":
+            self.crypto.queue.append(req)
+        else:
+            self.sched.submit(req)
+
+    def try_admit(self, now: float = 0.0) -> list[Slot]:
+        """Admit as many queued requests as there are FREE slots; each
+        admission chunk-prefills the prompt and splices it into the
+        batched cache.  Returns the admitted slots (normally now in
+        DECODE; already FREE again if the first token retired the
+        request — one-token budget or instant EOS)."""
+        admitted = []
+        while True:
+            slot = self.sched.admit_next(now)
+            if slot is None:
+                break
+            self._prefill_into(slot, now)
+            admitted.append(slot)
+        if self._crypto is not None:
+            self._crypto._crypto_admit(now)
+        return admitted
+
+    def _prefill_into(self, slot: Slot, now: float) -> None:
+        req = slot.req
+        prompt = [int(t) for t in req.prompt]
+        plen, C = len(prompt), self.prefill_chunk
+        solo = self._fresh_solo()
+        bucket = self._pick_bucket(plen)
+        if bucket is not None:
+            # one padded extend call; the pad beyond plen - 1 is causally
+            # invisible (logit_index reads the last real position) and
+            # decode writes overwrite it before it is ever attended
+            toks = self._tokens([prompt + [0] * (bucket - plen)])
+            logits, solo = self._extend_fn(self.params, solo, toks, 0,
+                                           plen - 1)
+            self.bucket_hits[bucket] += 1
+            self.bucket_pad_tokens += bucket - plen
+            self.bucket_real_tokens += plen
+        else:
+            n_chunks = -(-plen // C)
+            if self.prefill_buckets is not None:
+                self.bucket_fallbacks += 1
+                self.bucket_pad_tokens += n_chunks * C - plen
+                self.bucket_real_tokens += plen
+            prompt = prompt + [0] * (n_chunks * C - plen)
+            last = (plen - 1) - (n_chunks - 1) * C
+            for ci in range(n_chunks):
+                toks = self._tokens([prompt[ci * C:(ci + 1) * C]])
+                # only the final chunk's last real prompt position is read
+                idx = last if ci == n_chunks - 1 else 0
+                logits, solo = self._extend_fn(self.params, solo, toks,
+                                               ci * C, idx)
+        first = int(torch.argmax(logits[0, 0]))
+        self.cache = self._insert_fn(self.cache, solo, slot.index)
+        if self.rns_verify:
+            fp = self._fp_fn(self.cache, slot.index, plen)
+            self.wire.put(req.rid, self.codec.encode_array(
+                fp, channel_major=True))
+        if self.sched.start_decode(slot, first, now) and self.rns_verify:
+            # instant retirement (one-token budget / immediate EOS) never
+            # reaches step()'s retirement branch — verify here instead
+            self.verify_log[req.rid] = self.verify_request(req)
+
+    # --------------------------------------------------------- decode loop
+    def step(self, now: float = 0.0) -> list:
+        """One batched decode step over every DECODE slot, plus one
+        ``crypto_chunk``-bit ladder advance of the crypto lane when it is
+        armed; returns the requests (both families) that retired."""
+        crypto_retired = (self._crypto._crypto_step(now)
+                          if self._crypto is not None else [])
+        decoding = self.sched.decoding_slots()
+        if not decoding:
+            return crypto_retired
+        toks, poss = self.sched.step_rows()
+        nxt, self.cache = self._decode_fn(
+            self.params, self.cache, self._tokens(toks)[:, None], poss)
+        nxt = nxt.tolist()
+        retired = []
+        for slot in decoding:
+            self.sched.advance(slot)
+            req = slot.req
+            if self.sched.record_token(slot, nxt[slot.index], now):
+                retired.append(req)
+                if self.rns_verify:
+                    self.verify_log[req.rid] = self.verify_request(req)
+        return retired + crypto_retired
+
+    @property
+    def busy(self) -> bool:
+        """Work anywhere in the engine: LLM queue/slots or crypto lane."""
+        return self.sched.busy or (
+            self._crypto is not None and self._crypto.busy)
+
+    def run_to_completion(self, max_steps: int = 1 << 20) -> list:
+        """Drain queue and slots (all arrivals already submitted)."""
+        steps = 0
+        while self.busy:
+            self.try_admit(float(steps))
+            if self.sched.decoding_slots() or (
+                self._crypto is not None and self.crypto.running_slots()
+            ):
+                self.step(float(steps))
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError("serve loop exceeded max_steps")
+        if self._crypto is None:
+            return self.sched.completed
+        return list(self.sched.completed) + list(self.crypto.completed)
+
+    def drain_completed(self) -> list:
+        """Hand back the retired requests and release the engine-held
+        state keyed on them (wire buffers, verify entries)."""
+        done, self.sched.completed = self.sched.completed, []
+        if self._crypto is not None:
+            done = done + self.crypto.completed
+            self.crypto.completed = []
+        if self.rns_verify:
+            for r in done:
+                if getattr(r, "family", "llm") == "crypto":
+                    self.wire.pop(("crypto", r.rid), None)
+                else:
+                    self.wire.pop(r.rid, None)
+                self.verify_log.pop(r.rid, None)
+        return done
+
+    def jit_cache_sizes(self) -> dict:
+        """Argument signatures per engine function (``serve_step.Traced``)
+        under the reference's keys: every value stays 1 for the engine's
+        lifetime (with ``prefill_buckets``, ``extend`` stays at the number
+        of distinct padded widths used)."""
+        sizes = {"decode": self._decode_fn._cache_size(),
+                 "extend": self._extend_fn._cache_size(),
+                 "insert": self._insert_fn._cache_size()}
+        if self._fp_fn is not None:
+            sizes["fingerprint"] = self._fp_fn._cache_size()
+        if self._crypto is not None:
+            sizes.update(self._crypto.jit_cache_sizes())
+        return sizes
+
+    def _pick_bucket(self, plen: int) -> int | None:
+        """Smallest armed bucket >= plen, or None (buckets off / prompt
+        longer than every bucket -> chunk-loop fallback)."""
+        if self.prefill_buckets is None:
+            return None
+        for b in self.prefill_buckets:
+            if b >= plen:
+                return b
+        return None
+
+    def bucket_stats(self) -> dict:
+        """Bucketed-prefill accounting: hits per width, chunk-loop
+        fallbacks, and pad overhead (pad tokens / real tokens) over all
+        prefill traffic."""
+        if self.prefill_buckets is None:
+            raise RuntimeError("engine built without prefill_buckets=")
+        real = self.bucket_real_tokens
+        return {
+            "widths": list(self.prefill_buckets),
+            "hits": {str(b): n for b, n in self.bucket_hits.items()},
+            "fallbacks": self.bucket_fallbacks,
+            "pad_tokens": self.bucket_pad_tokens,
+            "real_tokens": real,
+            "pad_overhead": (self.bucket_pad_tokens / real) if real else 0.0,
+        }
+
+    # ------------------------------------------------- RNS integrity path
+    def _require_verify(self):
+        if not self.rns_verify:
+            raise RuntimeError("engine built without rns_verify=True")
+
+    def verify_request(self, req) -> bool:
+        """Recompute ``req``'s prompt-region fingerprint and compare its RNS
+        encoding bitwise against the stored wire buffer (one codeword over
+        the slot row's [0, plen), keyed by rid).  Valid until the row is
+        reused by a later admission; the engine calls this automatically
+        at retirement.  Crypto-family requests verify their lane slot's
+        immutable rows (``CryptoEngine.verify_request``)."""
+        self._require_verify()
+        if getattr(req, "family", "llm") == "crypto":
+            return self._crypto.verify_request(req)
+        fp = self._fp_fn(self.cache, req.slot_index, len(req.prompt))
+        fresh = self.codec.encode_array(fp, channel_major=True)
+        return self.wire.matches(req.rid, fresh)
+
+    def wire_ok(self, key) -> bool:
+        """Codeword self-consistency of one stored wire buffer (RRNS
+        redundant-channel check), without touching the cache."""
+        self._require_verify()
+        return self.wire.ok(key)
+
+    def repair_wire(self, key) -> dict:
+        """Locate-and-correct one stored wire buffer in place via
+        ``dist.fault.repair_packed``; returns its report dict."""
+        self._require_verify()
+        return self.wire.repair(key)
+
+    def corrupt_wire(self, key, channel: int = 0, delta: int = 1,
+                     index: int = 0) -> None:
+        """Fault injection for tests and drivers: modular-bump one residue
+        of a stored wire buffer (still a valid residue, so only the
+        redundant channels catch it)."""
         self._require_verify()
         self.wire.corrupt(key, channel=channel, delta=delta, index=index)

@@ -1,14 +1,81 @@
-"""Device state of the serve engine's lanes.
+"""Serving steps and the device state of the serve engine's lanes.
 
-For now only the crypto lane's: the counterpart of the reference's
-``serve_step.crypto_state_abstract``, made concrete (torch has no abstract
-shapes to trace against).  The LLM lane's cache comes with the serve slice.
+``make_prefill``/``make_decode_step`` wrap the model's serving functions
+with the reference's fixed (params, batch) and (params, cache, tokens, pos)
+signatures (``repro/serve/serve_step.py``).  ``cache_zeros`` and
+``crypto_state_zeros`` are the reference's ``cache_abstract`` and
+``crypto_state_abstract`` made concrete: torch has no abstract shapes to
+trace against, so the shapes are reckoned from the configuration.
+
+``Traced`` is the port's form of the reference's no-retrace census: the
+reference counts the graphs ``jax.jit`` compiled for each engine function
+(``_cache_size()``); a ``Traced`` function counts the distinct argument
+signatures (tensor shapes, dtypes and devices; the type of anything else)
+it was called with.  With fixed shapes every count stays 1.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["crypto_state_zeros"]
+from ..models import decode_step, prefill
+from ..models.transformer import _dtype, global_flags
+
+__all__ = ["make_prefill", "make_decode_step", "cache_zeros",
+           "crypto_state_zeros", "Traced"]
+
+
+def make_prefill(cfg, cache_len: int):
+    def fn(params, batch):
+        return prefill(cfg, params, batch, cache_len)
+
+    return fn
+
+
+def make_decode_step(cfg):
+    def fn(params, cache, tokens, pos):
+        return decode_step(cfg, params, cache, tokens, pos)
+
+    return fn
+
+
+def cache_zeros(cfg, batch: int, cache_len: int, device="cuda") -> dict:
+    """The all-zero decode cache of ``batch`` rows of ``cache_len``
+    positions: the tree a prefill of the dense family returns (the leaves
+    and shapes of the reference's ``cache_abstract``), with ``len`` 0.
+
+    >>> from repro_torch.configs import get_config
+    >>> c = cache_zeros(get_config("gemma3-1b").smoke(), 2, 128, "cpu")
+    >>> {k: tuple(v.shape) for k, v in c.items() if k != "len"}["lk"]
+    (10, 2, 64, 1, 32)
+    """
+    cfg.validate()
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family of {cfg.name} is not ported yet "
+            f"(ROADMAP.md, queue 1); the port runs dense")
+    L, g, hd = cfg.n_layers, cfg.n_kv, cfg.head_dim
+    dt = _dtype(cfg)
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.window and cfg.window_cache:
+        n_global = int(global_flags(cfg).sum())
+        n_local, W = L - n_global, cfg.window
+        return {"gk": zeros(n_global, batch, cache_len, g, hd),
+                "gv": zeros(n_global, batch, cache_len, g, hd),
+                "lk": zeros(n_local, batch, W, g, hd),
+                "lv": zeros(n_local, batch, W, g, hd), "len": 0}
+    cache = {"len": 0}
+    if cfg.kv_quant:
+        if cfg.window:
+            raise NotImplementedError("int8 KV + ring caches not combined")
+        cache["ks"] = zeros(L, batch, g, dtype=torch.float32)
+        cache["vs"] = zeros(L, batch, g, dtype=torch.float32)
+        dt = torch.int8
+    cache["k"] = zeros(L, batch, cache_len, g, hd, dtype=dt)
+    cache["v"] = zeros(L, batch, cache_len, g, hd, dtype=dt)
+    return cache
 
 
 def crypto_state_zeros(ctx, n_slots: int, device="cuda") -> dict:
@@ -34,3 +101,37 @@ def crypto_state_zeros(ctx, n_slots: int, device="cuda") -> dict:
         "neg": row(ctx.n), "n_lo": row(ctx.nch_lo), "n_hi": row(ctx.n_hi),
         "bits": row(ctx.exp_bits),
     }
+
+
+def _signature(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device.type)
+    if isinstance(x, dict):
+        return tuple((k, _signature(v)) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(v) for v in x)
+    return type(x).__name__
+
+
+class Traced:
+    """``fn`` with a census of the argument signatures it was called with.
+
+    >>> f = Traced(lambda t, i: t[i])
+    >>> _ = f(torch.zeros(3), 0), f(torch.zeros(3), 2)
+    >>> f._cache_size()
+    1
+    >>> _ = f(torch.zeros(4), 0)
+    >>> f._cache_size()
+    2
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.signatures: set = set()
+
+    def __call__(self, *args):
+        self.signatures.add(_signature(args))
+        return self.fn(*args)
+
+    def _cache_size(self) -> int:
+        return len(self.signatures)

@@ -922,10 +922,10 @@ def test_serve_cli_crypto_subprocess():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--families", "llm", "--crypto-slots", "1"], "serve slice"),
+    (["--mode", "offline"], "serve slice"),
     (["--families", "crypto,audio", "--crypto-slots", "1"], "subset"),
     (["--crypto-requests", "2"], "crypto-slots"),
-    (["--crypto-slots", "2"], "crypto-requests"),
+    (["--families", "crypto", "--crypto-slots", "2"], "crypto-requests"),
 ])
 def test_serve_cli_refusals(argv, what, capsys):
     with pytest.raises(SystemExit):

@@ -67,19 +67,19 @@ def busy_ms(intervals, lo, hi) -> float:
     return total / 1e3
 
 
-def summarize(trace_path: str, label: str) -> dict:
+def summarize(trace_path: str, label: str, span: str = "train_step") -> dict:
     """The JSON object of one path from its Chrome trace (``.json`` or
-    ``.json.gz``); the steps are the host-side ``train_step`` spans."""
+    ``.json.gz``); the steps are the host-side ``span`` spans."""
     opener = gzip.open if trace_path.endswith(".gz") else open
     with opener(trace_path, "rt") as f:
         events = json.load(f)["traceEvents"]
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("name") == "train_step" and e.get("ph") == "X"
+             if e.get("name") == span and e.get("ph") == "X"
              and e.get("cat") == "user_annotation"]
     device = [e for e in events if e.get("ph") == "X" and e.get("cat") in
               ("kernel", "gpu_memcpy", "gpu_memset")]
     if not spans or not device:
-        raise RuntimeError(f"train_profile: the trace of {label} holds "
+        raise RuntimeError(f"profile: the trace of {label} holds "
                            f"{len(spans)} step spans and {len(device)} "
                            "device events")
     wall = sum(e - s for s, e in spans) / 1e3
