@@ -108,6 +108,37 @@ prints one JSON object per line:
                encode), peak device memory above the run's start.  Then a short ``llm,crypto`` run
                on one engine (SERVE_MIXED_ARGS), every crypto result against
                Python's big ints;
+6c. paged    — slice 6, the paged pool, the offline harness and the load
+               generator at full width: the same gemma3-1b engine shape
+               with pages of 512 tokens (33 pages of 13.6 MB) on a trace
+               of 16 requests behind one 1,024-token prefix with their own
+               Poisson(256) suffixes and 2 bare-prefix requests, 64 new
+               tokens each (``paged_trace``).  (a) ``--mode sim --page-size
+               512 --rns-verify --inject-wire-corrupt``: all 18 served,
+               every ``jit_traces`` value 1, dedup hits and copy-on-write
+               copies above 0, peak pages in use below the pages the same
+               slots map without sharing, one codeword a page (the puts
+               equal the reader pages less the shared ones plus the
+               copies), the injected fault on a retained shared page
+               repaired once; then a shared page corrupted under three live
+               readers, repaired once, every reader re-verified; the
+               codec_encode kernel on a real page fingerprint against its
+               plain version bit for bit.  (b) The same trace on the
+               batched cache: tokens equal and rids 0, 7 and 16's logical
+               K/V rows equal the batched rows bit for bit; the decode step
+               and prefill calls of both timed (CUDA events, host clock).
+               (c) ``--mode offline --buckets pow2``: the census equal to
+               warmup's, every fingerprint verified, wall, tokens/s, TTFT
+               and latency in seconds, buckets and paging; whether the
+               tokens equal (a)'s and whether rids 0, 7 and 16's logical
+               K/V rows equal (a)'s bit for bit (measured, not required),
+               and two requests (those whose tokens differ, else rids 7
+               and 16) against a teacher-forced forward.  (d)
+               SERVE_MIXED_ARGS offline with pages of 256: the 8 crypto
+               results against Python's big ints.  (e) ``--mode loadgen``
+               (8 requests a phase, QPS 0.5 to 16, two bisections): the
+               transcript, every phase free of new signatures.  Each run's
+               kernel launches;
 7. timing    — CUDA-event medians of each kernel and its plain version at
                the main-path shapes: ``ms`` is one launch between two
                events, the wrapper's host work before the launch included;
@@ -131,9 +162,9 @@ prints one JSON object per line:
                this tree, run both trees' chip_smoke.py in one call to the
                card (parent, change, change, parent) and read the rows;
 8. kernels   — one line listing every ported kernel, its launches summed
-               over the five main paths (slice 1, the codec steps, the
-               full-width training runs, the crypto lane, the serve runs)
-               and one timing
+               over the six main paths (slice 1, the codec steps, the
+               full-width training runs, the crypto lane, the serve runs,
+               the paged runs) and one timing
                row: mrc and modmul at the
                paper's width, compare on the one column where 17,588 of its
                17,657 launches run (the divmods' and the canonicalisations'
@@ -281,6 +312,29 @@ SERVE_MIXED_ARGS = ("--arch", "gemma3-1b", "--no-smoke", "--slots", "4",
                     "--crypto-requests", "8", "--crypto-limbs", "8",
                     "--crypto-exp-bits", "32", "--rns-verify", "--seed", "1",
                     "--device", DEVICE)
+# Slice 6, the paged pool (phase 6c): gemma3-1b at full width on the same
+# engine shape (8 slots x 2048 positions, chunk 256) with pages of 512
+# tokens (default pool: 1 + 8 * 4 = 33 pages of 13.6 MB), on a trace of
+# shared-prefix traffic (``paged_trace``): 16 requests whose prompts share
+# one 1,024-token prefix, each with its own Poisson(256) suffix, then 2
+# requests of the bare prefix (full-prefix hits: copy-on-write), 64 new
+# tokens each, arrivals at 0.5 a tick; seed 0.
+PAGED_PREFIX, PAGED_SHARED, PAGED_BARE = 1024, 16, 2
+PAGED_SUFFIX_MEAN, PAGED_MAX_NEW, PAGED_RATE = 256, 64, 0.5
+PAGED_ENGINE = ("--arch", "gemma3-1b", "--no-smoke", "--slots", "8",
+                "--cache-len", "2048", "--prefill-chunk", "256",
+                "--seed", "0", "--device", DEVICE)
+PAGED_SIM = ("--page-size", "512", "--rns-verify", "--inject-wire-corrupt")
+PAGED_MONO = ("--rns-verify",)
+PAGED_OFFLINE = ("--mode", "offline", "--page-size", "512", "--buckets",
+                 "pow2", "--rns-verify")
+PAGED_ROW_RIDS = (0, 7, 16)        # logical K/V rows, paged == batched
+# SERVE_MIXED_ARGS' workload (cache 512) offline, in pages of 256
+PAGED_MIXED = ("--mode", "offline", "--page-size", "256", "--buckets", "pow2")
+PAGED_LOADGEN = PAGED_ENGINE + (
+    "--mode", "loadgen", "--page-size", "512", "--qps-lo", "0.5",
+    "--qps-hi", "16", "--qps-iters", "2", "--phase-requests", "8",
+    "--prompt-mean", "256", "--max-new", "16")
 ORACLE_CHUNK = 16                  # pow() calls per process-pool task
 # Card cycles to sleep before a queued timing: longer than the host takes to
 # enqueue ten launches of any kernel timed (about 2 ms at 1.98 GHz).
@@ -1502,16 +1556,22 @@ def crypto_frontends(dev) -> dict:
 class ServeProbe:
     """Instrumentation of ``repro_torch.serve.batcher`` around one run of
     the serve driver.  It wraps the model calls the engine makes (the
-    module's ``decode_step`` and ``extend_step``) and three engine methods
-    (``submit``, ``_prefill_into``, ``step``): CUDA events and the host
-    clock around each decode step (the events' span is the step; the host
-    clock is the time to enqueue it, the call does not wait for the card)
-    and around each prefill chunk; for each rid in ``keep_logits`` a copy
-    of its logit row from its admission's last chunk and from each decode
-    step (kept on the card, for the teacher-forced check); the wall time of
-    each submit and first token (TTFT in ms; the first token ends in a host
-    read); and at the retirement of each rid in ``keep_rows`` a copy of its
-    written KV span [0, plen + n_out - 1)."""
+    module's ``decode_step`` and ``extend_step``), four engine methods
+    (``submit``, ``_prefill_into``, ``step``, ``_retire_paged``) and the
+    wire store's ``put``: CUDA events and the host clock around each decode
+    step (the events' span is the step; the host clock is the time to
+    enqueue it, the call does not wait for the card) and around each
+    prefill chunk; for each rid in ``keep_logits`` a copy of its logit row
+    from its admission's last chunk and from each decode step (kept on the
+    card, for the teacher-forced check); the wall time of each submit and
+    first token (TTFT in ms; the first token ends in a host read); at the
+    retirement of each rid in ``keep_rows`` a copy of its written KV span
+    [0, plen + n_out - 1) (on a paged pool the logical rows gathered
+    through its page-table row, before the row is released); on a paged
+    pool before each step the pages the slots' tables map (a shared page
+    once per reader: what the same slots would hold without sharing)
+    beside the pages in use; and the codewords put under int keys (one a
+    page on a paged pool)."""
 
     def __init__(self, keep_rows=(), keep_logits=()):
         from repro_torch.serve import batcher
@@ -1523,13 +1583,18 @@ class ServeProbe:
         self.prefill_logits = {}
         self.t_submit, self.t_first, self.rows = {}, {}, {}
         self.engine, self.prefilling = None, None
+        self.page_use, self.page_puts = [], 0
 
     def __enter__(self):
+        from repro_torch.dist import fault
+
         B = self.batcher.ContinuousBatcher
+        self.store = fault.WireStore
         self.orig = {"decode_step": self.batcher.decode_step,
                      "extend_step": self.batcher.extend_step,
                      "submit": B.submit, "_prefill_into": B._prefill_into,
-                     "step": B.step}
+                     "step": B.step, "_retire_paged": B._retire_paged,
+                     "put": self.store.put}
         probe = self
 
         def submit(eng, req):
@@ -1544,26 +1609,49 @@ class ServeProbe:
 
         def step(eng, now=0.0):
             probe.engine = eng
+            if eng.paged:
+                probe.page_use.append(
+                    (sum(p != 0 for row in eng.sched.table for p in row),
+                     eng.sched.alloc.in_use))
             retired = probe.orig["step"](eng, now)
             for r in retired:
-                if r.rid in probe.keep_rows:
+                if r.rid in probe.keep_rows and not eng.paged:
                     end = len(r.prompt) + len(r.out) - 1
                     probe.rows[r.rid] = tuple(
                         eng.cache[n][:, r.slot_index, :end].clone()
                         for n in ("k", "v"))
             return retired
 
+        def retire_paged(eng, req):
+            if req.rid in probe.keep_rows:
+                end = len(req.prompt) + len(req.out) - 1
+                pages = eng._table(eng.sched.table[req.slot_index])
+                rows = []
+                for n in ("k", "v"):
+                    pool = eng.cache[n]
+                    L, _, ps, g, hd = pool.shape
+                    rows.append(pool[:, pages].reshape(
+                        L, len(pages) * ps, g, hd)[:, :end].clone())
+                probe.rows[req.rid] = tuple(rows)
+            return probe.orig["_retire_paged"](eng, req)
+
+        def put(store, key, arr):
+            probe.page_puts += isinstance(key, int)
+            return probe.orig["put"](store, key, arr)
+
         self.batcher.decode_step = self._decode_step
         self.batcher.extend_step = self._extend_step
         B.submit, B._prefill_into, B.step = submit, prefill_into, step
+        B._retire_paged, self.store.put = retire_paged, put
         return self
 
     def __exit__(self, *exc):
         B = self.batcher.ContinuousBatcher
         self.batcher.decode_step = self.orig["decode_step"]
         self.batcher.extend_step = self.orig["extend_step"]
-        for name in ("submit", "_prefill_into", "step"):
+        for name in ("submit", "_prefill_into", "step", "_retire_paged"):
             setattr(B, name, self.orig[name])
+        self.store.put = self.orig["put"]
 
     def _timed(self, fn, *args, **kw):
         import torch
@@ -1576,9 +1664,9 @@ class ServeProbe:
         e1.record()
         return out, (e0, e1), time.perf_counter() - t
 
-    def _decode_step(self, cfg, params, cache, tokens, pos):
+    def _decode_step(self, cfg, params, cache, tokens, pos, **kw):
         (logits, cache), ev, host = self._timed(
-            self.orig["decode_step"], cfg, params, cache, tokens, pos)
+            self.orig["decode_step"], cfg, params, cache, tokens, pos, **kw)
         self.decode.append(ev)
         self.decode_host.append(host)
         for s in self.engine.sched.slots:
@@ -1627,13 +1715,53 @@ def serve_run(argv, keep_rows=(), keep_logits=()):
         report, engine = launch_serve.main(list(argv))
         seconds = time.perf_counter() - t0
     launches = launch_counts(ops)
-    require(json.loads(out.getvalue()) == report,
+    printed = out.getvalue()
+    # --mode offline|loadgen print '# ...' progress lines before the report
+    start = 0 if printed.startswith("{") else printed.index("\n{") + 1
+    require(json.JSONDecoder().raw_decode(printed[start:])[0] == report,
             "serve: the CLI's printed report")
     return {"report": report, "engine": engine, "probe": probe,
             "seconds": seconds, "launches": launches,
             "memory_allocated_at_start": at_start,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "peak_memory_of_run": torch.cuda.max_memory_allocated() - at_start}
+
+
+def teacher_forced(cfg, params, r, got, dev) -> dict:
+    """Request ``r``'s engine logits ``got`` (the last prompt position, then
+    each decode step) against a teacher-forced ``train_logits`` over
+    prompt + out[:-1]: within SERVE_LOGIT_TOL of the forward's largest
+    |logit|, and every token whose top-2 margin there exceeds the
+    difference equal to the forward's argmax."""
+    import torch
+
+    from repro_torch.models import train_logits
+
+    plen = len(r.prompt)
+    with torch.inference_mode():
+        toks = torch.tensor([r.prompt + r.out[:-1]], device=dev)
+        fwd, _ = train_logits(cfg, params, {"tokens": toks})
+        fwd = fwd[0, plen - 1:].float()
+        got = got.float()
+        require(got.shape == fwd.shape,
+                f"serve: rid {r.rid} logits {tuple(got.shape)}")
+        diff = float((got - fwd).abs().max())
+        scale = float(fwd.abs().max())
+        top2 = fwd.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        argmax = fwd.argmax(dim=-1).tolist()
+    decided = [i for i in range(len(r.out)) if float(margin[i]) > diff]
+    agree = sum(r.out[i] == argmax[i] for i in decided)
+    require(diff <= SERVE_LOGIT_TOL * scale,
+            f"serve: rid {r.rid} logits differ by {diff}")
+    require(agree == len(decided),
+            f"serve: rid {r.rid}: {len(decided) - agree} decided tokens "
+            "differ from the forward's argmax")
+    return {"rid": r.rid, "plen": plen, "positions": len(r.out),
+            "max_abs_diff": diff, "max_abs_logit": scale,
+            "tolerance": SERVE_LOGIT_TOL * scale,
+            "decided_tokens": len(decided),
+            "argmax_equal_all": argmax == r.out}
 
 
 def serve_main_path(dev, max_err) -> dict:
@@ -1648,7 +1776,6 @@ def serve_main_path(dev, max_err) -> dict:
 
     from repro_torch.kernels.codec_encode import (codec_encode_kernel_call,
                                                   codec_encode_plain)
-    from repro_torch.models import train_logits
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.serve.scheduler import Request
 
@@ -1719,37 +1846,9 @@ def serve_main_path(dev, max_err) -> dict:
 
     # cache consistency: the engine's logits against a teacher-forced
     # forward over prompt + out[:-1]
-    consistency = []
-    with torch.inference_mode():
-        for rid in SERVE_CHECK_RIDS:
-            r = done[rid]
-            plen = len(r.prompt)
-            toks = torch.tensor([r.prompt + r.out[:-1]], device=dev)
-            fwd, _ = train_logits(cfg, params, {"tokens": toks})
-            fwd = fwd[0, plen - 1:].float()
-            got = probe.logits_of(rid).float()
-            require(got.shape == fwd.shape,
-                    f"serve: rid {rid} logits {tuple(got.shape)}")
-            diff = float((got - fwd).abs().max())
-            scale = float(fwd.abs().max())
-            top2 = fwd.topk(2, dim=-1).values
-            margin = top2[:, 0] - top2[:, 1]
-            argmax = fwd.argmax(dim=-1).tolist()
-            decided = [i for i in range(len(r.out))
-                       if float(margin[i]) > diff]
-            agree = sum(r.out[i] == argmax[i] for i in decided)
-            require(diff <= SERVE_LOGIT_TOL * scale,
-                    f"serve: rid {rid} logits differ by {diff}")
-            require(agree == len(decided),
-                    f"serve: rid {rid}: {len(decided) - agree} decided "
-                    "tokens differ from the forward's argmax")
-            consistency.append({"rid": rid, "plen": plen,
-                                "positions": len(r.out),
-                                "max_abs_diff": diff, "max_abs_logit": scale,
-                                "tolerance": SERVE_LOGIT_TOL * scale,
-                                "decided_tokens": len(decided),
-                                "argmax_equal_all": argmax == r.out})
-            del fwd
+    consistency = [teacher_forced(cfg, params, done[rid],
+                                  probe.logits_of(rid), dev)
+                   for rid in SERVE_CHECK_RIDS]
 
     decode_ms = [a.elapsed_time(b) for a, b in probe.decode]
     chunk_ms = [a.elapsed_time(b) for a, b in probe.chunks]
@@ -1797,6 +1896,266 @@ def serve_main_path(dev, max_err) -> dict:
                       "rns": mrep["rns"], "jit_traces": mrep["jit_traces"],
                       "launches": mixed["launches"]},
             "launches": implied(**total)}
+
+
+# ----------------------------------------------- slice 6: the paged pool
+def paged_trace(path: str) -> list:
+    """Write phase 6c's JSONL workload (the serve CLI's ``--trace``
+    format) and return its requests as dicts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PAGED_ENGINE[PAGED_ENGINE.index("--arch") + 1])
+    vocab = (cfg if "--no-smoke" in PAGED_ENGINE else cfg.smoke()).vocab
+    rng = np.random.default_rng(0)
+    prefix = [int(t) for t in rng.integers(1, vocab, PAGED_PREFIX)]
+    t, reqs = 0.0, []
+    for rid in range(PAGED_SHARED + PAGED_BARE):
+        t += float(rng.exponential(1.0 / PAGED_RATE))
+        if rid < PAGED_SHARED:
+            n = max(1, int(rng.poisson(PAGED_SUFFIX_MEAN)))
+            prompt = prefix + [int(x) for x in rng.integers(1, vocab, n)]
+        else:
+            prompt = list(prefix)
+        reqs.append({"rid": rid, "prompt": prompt, "max_new": PAGED_MAX_NEW,
+                     "eos": None, "arrival": t})
+    with open(path, "w") as f:
+        for r in reqs:
+            f.write(json.dumps(r) + "\n")
+    return reqs
+
+
+def step_times(probe) -> dict:
+    """A run's decode-step and prefill-call times: CUDA events (median,
+    max) and the host's time to enqueue a decode step (median)."""
+    decode = [a.elapsed_time(b) for a, b in probe.decode]
+    chunks = [a.elapsed_time(b) for a, b in probe.chunks]
+    return {"decode_steps": len(decode),
+            "decode_ms_median": statistics.median(decode),
+            "decode_ms_max": max(decode),
+            "decode_host_ms_median": 1e3 * statistics.median(
+                probe.decode_host),
+            "prefill_calls": len(chunks),
+            "prefill_call_ms_median": statistics.median(chunks)}
+
+
+def paged_main_path(dev, max_err) -> dict:
+    """Slice 6's main path, gemma3-1b at full width on the paged pool:
+    (a) the sim CLI with pages of 512 on the shared-prefix trace, its
+    dedup, copy-on-write, page and codeword counts checked and its
+    injected fault repaired; a shared page corrupted under three live
+    readers, repaired once, every reader re-verified; the codec_encode
+    kernel on a real page fingerprint against its plain version; (b) the
+    same trace on the batched cache: tokens and three requests' logical
+    K/V rows equal bit for bit, the decode step and prefill chunk timed
+    beside the paged ones; (c) ``--mode offline`` with pow2 buckets on the
+    trace: steady state, fingerprints, wall-clock numbers, tokens against
+    (a) and two requests against a teacher-forced forward; (d) the mixed
+    ``llm,crypto`` workload offline; (e) ``--mode loadgen``."""
+    import torch
+
+    from repro_torch.kernels.codec_encode import (codec_encode_kernel_call,
+                                                  codec_encode_plain)
+    from repro_torch.serve.scheduler import Request
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "paged_trace.jsonl")
+    trace = paged_trace(path)
+    n_req = len(trace)
+    tokens = n_req * PAGED_MAX_NEW
+    ps = int(PAGED_SIM[PAGED_SIM.index("--page-size") + 1])
+
+    # (a) the paged sim
+    a = serve_run(PAGED_ENGINE + PAGED_SIM + ("--trace", path),
+                  keep_rows=PAGED_ROW_RIDS)
+    rep, eng, probe = a["report"], a["engine"], a["probe"]
+    require(rep["requests"] == n_req and rep["tokens_out"] == tokens,
+            f"paged sim: {rep['requests']} requests, {rep['tokens_out']} "
+            f"tokens")
+    require(set(rep["jit_traces"].values()) == {1},
+            f"paged sim: jit_traces {rep['jit_traces']}")
+    pg, rns = rep["paging"], rep["rns"]
+    require(pg["dedup_hits"] > 0 and pg["cow_copies"] > 0,
+            f"paged sim: paging {pg}")
+    mapped = max(m for m, _ in probe.page_use)
+    in_use = max(u for _, u in probe.page_use)
+    require(in_use < mapped and pg["pages_in_use_peak"] < mapped,
+            f"paged sim: {in_use} pages in use against {mapped} unshared")
+    # one codeword a page, not one a reader: a reader's prompt pages less
+    # the shared ones it mapped, plus the ones it copied
+    reader_pages = sum(-(-len(r["prompt"]) // ps) for r in trace)
+    puts = probe.page_puts
+    require(puts == reader_pages - pg["dedup_hits"] + pg["cow_copies"]
+            and puts < reader_pages,
+            f"paged sim: {puts} codewords for {reader_pages} reader pages")
+    require(rns["slots_verified"] == n_req and rns["slots_failed"] == 0
+            and pg["fingerprints"]["failed"] == 0, f"paged sim: rns {rns}")
+    require(rns["injected_detected"] and rns["injected_reverified"]
+            and rns["injected_repair"] == {"repaired": 1,
+                                           "unrecoverable": 0},
+            f"paged sim: injected wire fault {rns}")
+    retained = sorted(eng.sched.alloc.retained)
+    require(retained and all(eng.sched.alloc.refcount[p] == 0
+                             for p in retained),
+            f"paged sim: retained pages {retained}")
+
+    # the codec_encode kernel on a real page fingerprint
+    pid = retained[0]
+    fp = eng._fp_fn(eng.cache, pid, eng._page_span[pid])
+    enc, enc_kw, _, _ = codec_tables(eng.codec)
+    got = codec_encode_kernel_call(fp, *enc, **enc_kw)
+    want = codec_encode_plain(fp, *enc, **enc_kw)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    max_err["codec_encode"] = max(max_err["codec_encode"], err)
+    require(err == 0 and torch.equal(got, want),
+            "paged: codec_encode on a page fingerprint differs from its "
+            "plain version")
+    page_fp_ms = median_ms(lambda: eng._page_codeword(pid))
+
+    # a shared page corrupted under three live readers: repaired once,
+    # every reader re-verified
+    prefix = trace[0]["prompt"][:PAGED_PREFIX]
+    readers = [Request(rid=100 + i, prompt=prefix + [11 + i] * 8, max_new=4)
+               for i in range(3)]
+    for r in readers:
+        eng.submit(r)
+    eng.try_admit()
+    shared = [p for p in range(eng.n_pages)
+              if eng.sched.alloc.refcount[p] == len(readers)]
+    require(len(shared) == PAGED_PREFIX // ps and shared[0] in eng.wire,
+            f"paged: shared pages {shared}")
+    repaired0 = eng.wire.stats["repaired"]
+    eng.corrupt_wire(shared[0], channel=1, delta=3)
+    detected = not eng.wire_ok(shared[0])
+    report = eng.repair_wire(shared[0])
+    eng.run_to_completion()
+    live = {"shared_pages": shared, "detected": detected, "repair": report,
+            "readers_verified": [eng.verify_log[r.rid] for r in readers],
+            "repairs": eng.wire.stats["repaired"] - repaired0}
+    require(detected and report == {"repaired": 1, "unrecoverable": 0}
+            and all(live["readers_verified"]) and live["repairs"] == 1,
+            f"paged: live shared-page fault {live}")
+    paged_done = {r.rid: r for r in eng.sched.completed}
+    paged_rows = dict(probe.rows)
+    paged_times = step_times(probe)
+    a_launches, a_seconds = a["launches"], a["seconds"]
+    del eng, probe, a, fp
+
+    # (b) the same trace on the batched cache
+    b = serve_run(PAGED_ENGINE + PAGED_MONO + ("--trace", path),
+                  keep_rows=PAGED_ROW_RIDS)
+    mono_done = {r.rid: r for r in b["engine"].sched.completed}
+    same_tokens = all(paged_done[k].out == mono_done[k].out
+                      for k in range(n_req))
+    require(same_tokens, "paged: tokens differ from the batched cache's")
+    rows_equal = {}
+    for rid in PAGED_ROW_RIDS:
+        pk, pv = paged_rows[rid]
+        mk, mv = b["probe"].rows[rid]
+        rows_equal[rid] = (pk.shape == mk.shape and torch.equal(pk, mk)
+                           and torch.equal(pv, mv))
+    require(all(rows_equal.values()),
+            f"paged: logical K/V rows against the batched rows {rows_equal}")
+    mono_times = step_times(b["probe"])
+    b_seconds, b_wall = b["seconds"], b["report"]["wall_s"]
+    del b
+
+    # (c) offline, pow2 buckets, on the trace
+    c = serve_run(PAGED_ENGINE + PAGED_OFFLINE + ("--trace", path),
+                  keep_rows=PAGED_ROW_RIDS, keep_logits=range(n_req))
+    crep, harness, cprobe = c["report"], c["engine"], c["probe"]
+    require(crep["retrace_free"] and harness.steady_state_ok(),
+            f"paged offline: census {crep['jit_traces']} against warmup "
+            f"{crep['warmup']['jit_traces']}")
+    require(crep["requests"] == n_req and crep["tokens_out"] == tokens,
+            f"paged offline: {crep['requests']} requests")
+    require(crep["rns"] == {"slots_verified": n_req, "slots_failed": 0},
+            f"paged offline: rns {crep['rns']}")
+    off_done = {r.rid: r for r, _ in harness.completions}
+    differ = [k for k in range(n_req) if off_done[k].out != paged_done[k].out]
+    # bucketed prefill's logical K/V rows against the chunk loop's (a):
+    # measured, not required (bucketed widths sum in other orders)
+    bucketed_rows = {}
+    for rid in PAGED_ROW_RIDS:
+        pairs = list(zip(cprobe.rows[rid], paged_rows[rid]))
+        bucketed_rows[str(rid)] = {
+            "bitwise": all(x.shape == y.shape and torch.equal(x, y)
+                           for x, y in pairs),
+            "max_abs_diff": max(float((x.float() - y.float()).abs().max())
+                                for x, y in pairs)}
+    held = (differ or [7, 16])[:2]
+    cfg, params = harness.engines[0].cfg, harness.engines[0].params
+    consistency = [teacher_forced(cfg, params, off_done[k],
+                                  cprobe.logits_of(k), dev) for k in held]
+    offline = {
+        "seconds": c["seconds"], "wall_s": crep["wall_s"],
+        "tok_per_s": crep["tok_per_s"], "ttft_s": crep["ttft_s"],
+        "latency_s": crep["latency_s"], "buckets": crep["buckets"],
+        "paging": crep["paging"], "overlap": crep["overlap"],
+        "engine_steps": crep["engine_steps"], "warmup": crep["warmup"],
+        "jit_traces": crep["jit_traces"], "rns": crep["rns"],
+        "tokens_equal_sim": not differ, "tokens_differ_rids": differ,
+        "kv_rows_vs_sim": bucketed_rows,
+        "teacher_forced": consistency, "launches": c["launches"],
+        **step_times(cprobe)}
+    del c, harness, cprobe, params
+
+    # (d) the mixed families offline
+    mixed_args = SERVE_MIXED_ARGS + PAGED_MIXED
+    d = serve_run(mixed_args)
+    drep = d["report"]
+    n_crypto = int(SERVE_MIXED_ARGS[
+        SERVE_MIXED_ARGS.index("--crypto-requests") + 1])
+    require(drep["crypto"]["oracle_ok"] == n_crypto
+            and drep["crypto"]["oracle_failed"] == 0,
+            f"paged mixed: crypto {drep['crypto']}")
+    require(drep["retrace_free"] and drep["rns"]["slots_failed"] == 0
+            and drep["rns"]["slots_verified"] == drep["requests"],
+            f"paged mixed: {drep['rns']}, census {drep['jit_traces']}")
+    mixed = {"args": list(mixed_args), "seconds": d["seconds"],
+             "wall_s": drep["wall_s"], "requests": drep["requests"],
+             "crypto": drep["crypto"], "rns": drep["rns"],
+             "jit_traces": drep["jit_traces"], "launches": d["launches"]}
+    del d
+
+    # (e) loadgen
+    e = serve_run(PAGED_LOADGEN)
+    erep = e["report"]
+    require(all(ph["retrace_free"] for ph in erep["phases"])
+            and e["engine"].steady_state_ok(),
+            "paged loadgen: a phase met a new signature")
+    loadgen = {"args": list(PAGED_LOADGEN), "seconds": e["seconds"],
+               **{k: erep[k] for k in ("slo", "phases", "bracket", "note",
+                                       "slo_pass", "max_qps",
+                                       "sustained_qps")},
+               "attestation": erep.get("attestation"),
+               "launches": e["launches"]}
+    del e
+
+    total = Counter(a_launches)
+    for run in (offline, mixed, loadgen):
+        total.update(run["launches"])
+    return {
+        "sim": {"args": list(PAGED_ENGINE + PAGED_SIM), "seconds": a_seconds,
+                "wall_s": rep["wall_s"], "tok_per_s": rep["tok_per_s"],
+                "steps": rep["steps"], "ttft_ticks": rep["ttft_ticks"],
+                "latency_ticks": rep["latency_ticks"], "paging": pg,
+                "rns": rns, "jit_traces": rep["jit_traces"],
+                "pages_mapped_peak": mapped, "pages_in_use_peak": in_use,
+                "reader_prompt_pages": reader_pages,
+                "codewords_put": puts,
+                "live_shared_fault": live, "page_fingerprint_ms": page_fp_ms,
+                "launches": a_launches, **paged_times},
+        "batched": {"args": list(PAGED_ENGINE + PAGED_MONO),
+                    "seconds": b_seconds, "wall_s": b_wall,
+                    "tokens_equal": same_tokens,
+                    "kv_rows_bitwise": {str(k): v
+                                        for k, v in rows_equal.items()},
+                    **mono_times},
+        "offline": offline, "mixed": mixed, "loadgen": loadgen,
+        "launches": implied(**total)}
 
 
 def main() -> int:
@@ -2081,6 +2440,28 @@ def main() -> int:
           f"{main_run['fingerprint_ms']:.3f} ms, peak memory "
           f"{main_run['peak_memory_of_run']} bytes above the run's start",
           flush=True)
+
+    # ---------------------------------- 6c. paged: slice 6's main path
+    paged = paged_main_path(dev, max_err)
+    for k in launches:
+        launches[k] += paged["launches"][k]
+    for part in ("sim", "batched", "offline", "mixed", "loadgen"):
+        emit({"phase": "paged", "step": part, **paged[part], "card": card})
+    sim, mono, off = paged["sim"], paged["batched"], paged["offline"]
+    print(f"paged: gemma3-1b full width, {card}: decode step "
+          f"{sim['decode_ms_median']:.3f} ms paged against "
+          f"{mono['decode_ms_median']:.3f} ms batched (CUDA events, median; "
+          f"host {sim['decode_host_ms_median']:.3f} / "
+          f"{mono['decode_host_ms_median']:.3f} ms), prefill call "
+          f"{sim['prefill_call_ms_median']:.3f} / "
+          f"{mono['prefill_call_ms_median']:.3f} ms; pages in use peak "
+          f"{sim['pages_in_use_peak']} against {sim['pages_mapped_peak']} "
+          f"unshared, {sim['paging']['dedup_hits']} dedup hits, "
+          f"{sim['paging']['cow_copies']} copies; offline "
+          f"{off['tok_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{off['ttft_s']['p50']:.3f} s, latency p50 "
+          f"{off['latency_s']['p50']:.3f} s; loadgen max QPS "
+          f"{paged['loadgen']['max_qps']}", flush=True)
 
     # -------------------------------------------------------- 7. timing
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

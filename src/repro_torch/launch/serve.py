@@ -1,9 +1,10 @@
-"""Continuous-batching serve driver (the reference's DESIGN.md §12), in
-its ``--mode sim``: ``serve.batcher.ContinuousBatcher`` over a request
-workload, synthetic (``--requests N`` with Poisson arrivals) or replayed
-from a workload file (``--trace FILE``), on a deterministic clock of
-decode-step ticks (one batched decode step a tick), so every latency number
-is the same for a given seed; wall-clock throughput is reported beside it.
+"""Continuous-batching serve driver (the reference's DESIGN.md §12):
+``serve.batcher.ContinuousBatcher`` over a request workload, synthetic
+(``--requests N`` with Poisson arrivals) or replayed from a workload file
+(``--trace FILE``).  ``--mode sim`` (the default) runs it on a
+deterministic clock of decode-step ticks (one batched decode step a tick),
+so every latency number is the same for a given seed; wall-clock
+throughput is reported beside it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --requests 8 --slots 4 --arrival-rate 0.5 [--device cpu]
@@ -13,6 +14,15 @@ is the same for a given seed; wall-clock throughput is reported beside it.
         --no-smoke --slots 8 --cache-len 2048 --prefill-chunk 256 \
         --requests 16 --prompt-mean 1024 --max-new 64 --arrival-rate 0.5 \
         --rns-verify --inject-wire-corrupt
+
+    # the paged, prefix-sharing pool; then the offline harness and the
+    # max-QPS search on it
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --page-size 8 --cache-len 64 --prefill-chunk 8 --rns-verify
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode offline --page-size 8 --cache-len 64 --prefill-chunk 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode loadgen --cache-len 64 --qps-iters 1 --phase-requests 4
 
 The flags, the workload file format and the report are the reference's
 (``src/repro/launch/serve.py``); a workload drawn from the same ``--seed``
@@ -32,10 +42,32 @@ every retirement); ``--inject-wire-corrupt`` then corrupts one stored wire
 buffer after the run and shows detect -> repair -> re-verify.  The crypto
 block checks every result against Python's ``pow``/``divmod``.
 
+``--page-size N`` puts the engine on the paged, prefix-sharing pool
+(``--pages`` sizes it, ``--no-prefix-share`` turns admission dedup off) and
+adds a ``paging`` block to the report: pages in use, dedup hits,
+copy-on-write copies, and under ``--rns-verify`` the per-page fingerprint
+counters.
+
+``--mode`` picks the measurement layer (the reference's DESIGN.md §16):
+
+* ``sim`` — the tick-clock replay above;
+* ``offline`` — the wall-clock saturation harness (``serve/offline.py``):
+  every request available at t=0, length-bucketed single-call prefill
+  (``--buckets``), a completion thread overlapping host work with the
+  decode steps (``--no-overlap`` for the synchronous baseline),
+  ``--replicas`` engines behind one admission queue, TTFT / latency /
+  tokens/s in seconds, and the check that the timed run met no argument
+  signature that warmup did not;
+* ``loadgen`` — the closed-loop QPS search (``serve/loadgen.py``) between
+  ``--qps-lo`` and ``--qps-hi`` under the ``--slo-*`` bounds; the report
+  carries every phase and the best passing one.
+
+``main`` returns ``(report, engine)`` in ``sim`` and ``(report, harness)``
+(the ``OfflineInference``) in the other modes.
+
 Not ported yet, each refused with the ROADMAP item it waits for:
-``--mode offline|loadgen`` and their flags, the paged pool
-(``--page-size``, ``--pages``, ``--no-prefix-share``), ``--warm-restart``,
-the profiler window (``--profile-*``), and the families other than dense.
+``--warm-restart``, the profiler window (``--profile-*``), and the
+families other than dense.
 """
 from __future__ import annotations
 
@@ -51,6 +83,7 @@ from ..configs import get_config
 from ..models import init_params
 from ..serve.batcher import ContinuousBatcher
 from ..serve.crypto import CryptoContext, CryptoRequest
+from ..serve.offline import OfflineInference, pow2_buckets, sample_stats
 from ..serve.scheduler import Request
 
 __all__ = ["main", "simulate", "synth_requests", "synth_crypto_requests",
@@ -199,18 +232,6 @@ def save_trace(path: str, reqs: list) -> None:
             f.write(json.dumps(d) + "\n")
 
 
-def _stats(xs: list) -> dict:
-    """n/mean/p50/p95/p99 of a sample; an empty sample (a family filter
-    can leave zero completions) gives the explicit ``n: 0`` record."""
-    if not xs:
-        return {"n": 0, "mean": 0.0, "p50": 0.0, "p95": 0.0, "p99": 0.0}
-    a = np.asarray(xs, np.float64)
-    return {"n": int(a.size), "mean": float(a.mean()),
-            "p50": float(np.percentile(a, 50)),
-            "p95": float(np.percentile(a, 95)),
-            "p99": float(np.percentile(a, 99))}
-
-
 def simulate(engine: ContinuousBatcher, reqs: list) -> dict:
     """Run the arrival/admission/decode loop to completion; returns the
     tick-clock counters (requests stamp their own t_* fields)."""
@@ -251,7 +272,7 @@ def _crypto_report(crypto_done: list, ctx, *, clock_key: str) -> dict:
         "exp_bits": ctx.exp_bits,
         "oracle_ok": ok,
         "oracle_failed": len(crypto_done) - ok,
-        clock_key: _stats([r.t_done - r.arrival for r in crypto_done]),
+        clock_key: sample_stats([r.t_done - r.arrival for r in crypto_done]),
     }
 
 
@@ -307,25 +328,54 @@ def _parser() -> argparse.ArgumentParser:
                     help="write the workload as a replayable JSONL trace")
     ap.add_argument("--device", default="cuda",
                     help="device of the model and the caches (default cuda)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="switch to the paged pool layout with pages of "
+                         "this many tokens (DESIGN.md §13)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="physical pages in the pool (default: full "
+                         "backing for every slot plus the parking page)")
+    ap.add_argument("--no-prefix-share", dest="prefix_share",
+                    action="store_false",
+                    help="disable admission-time prompt-prefix dedup "
+                         "(paged mode; measures pure paging)")
+    ap.set_defaults(prefix_share=True)
+    ap.add_argument("--mode", choices=("sim", "offline", "loadgen"),
+                    default="sim",
+                    help="sim: deterministic tick-clock replay (default); "
+                         "offline: wall-clock saturation harness; loadgen: "
+                         "closed-loop max-QPS search (DESIGN.md §16)")
+    ap.add_argument("--buckets", default="pow2", metavar="SPEC",
+                    help="offline prefill buckets: 'pow2' (power-of-two "
+                         "ladder up to cache-len, the default), 'none' "
+                         "(chunked prefill), or a comma list like "
+                         "'32,64,128'; composes with --page-size (padded "
+                         "write barrier through the page table)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind one shared "
+                         "admission queue (offline/loadgen)")
+    ap.add_argument("--queue-size", type=int, default=64,
+                    help="bound of the completion pump's queue "
+                         "(backpressure depth)")
+    ap.add_argument("--no-overlap", dest="overlap", action="store_false",
+                    help="run completion callbacks inline on the driver "
+                         "thread — the synchronous baseline the overlap "
+                         "ratio is measured against")
+    ap.set_defaults(overlap=True)
+    ap.add_argument("--qps-lo", type=float, default=0.5,
+                    help="loadgen search floor (offered QPS)")
+    ap.add_argument("--qps-hi", type=float, default=64.0,
+                    help="loadgen search ceiling (offered QPS)")
+    ap.add_argument("--qps-iters", type=int, default=4,
+                    help="loadgen bisections after the bracket probes")
+    ap.add_argument("--phase-requests", type=int, default=16,
+                    help="requests per measured loadgen phase")
+    ap.add_argument("--slo-ttft-ms", type=float, default=2000.0,
+                    help="SLO: TTFT p99 bound (milliseconds)")
+    ap.add_argument("--slo-p99-ms", type=float, default=10000.0,
+                    help="SLO: end-to-end latency p99 bound (ms)")
     # the reference's flags for what is not ported yet: each refused, with
     # the ROADMAP item it waits for
     later = ap.add_argument_group("not ported yet (refused)")
-    later.add_argument("--mode", choices=("sim", "offline", "loadgen"),
-                       default="sim")
-    later.add_argument("--page-size", type=int, default=None)
-    later.add_argument("--pages", type=int, default=None)
-    later.add_argument("--no-prefix-share", dest="prefix_share",
-                       action="store_false", default=True)
-    later.add_argument("--buckets", default=None, metavar="SPEC")
-    later.add_argument("--replicas", type=int, default=1)
-    later.add_argument("--queue-size", type=int, default=64)
-    later.add_argument("--no-overlap", dest="overlap", action="store_false",
-                       default=True)
-    for flag, default in (("--qps-lo", 0.5), ("--qps-hi", 64.0),
-                          ("--slo-ttft-ms", 2000.0), ("--slo-p99-ms", 1e4)):
-        later.add_argument(flag, type=float, default=default)
-    later.add_argument("--qps-iters", type=int, default=4)
-    later.add_argument("--phase-requests", type=int, default=16)
     later.add_argument("--warm-restart", default=None, metavar="DIR")
     later.add_argument("--profile-start-step", type=int, default=-1)
     later.add_argument("--profile-steps", type=int, default=0)
@@ -334,22 +384,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 # flag -> (argparse dest, what it waits for)
-_PAGED = "the paged pool of a later serve slice"
-_OFFLINE = "the offline harness and load generator of a later serve slice"
 _UNPORTED = {
-    "--page-size": ("page_size", _PAGED),
-    "--pages": ("pages", _PAGED),
-    "--no-prefix-share": ("prefix_share", _PAGED),
-    "--buckets": ("buckets", _OFFLINE),
-    "--replicas": ("replicas", _OFFLINE),
-    "--queue-size": ("queue_size", _OFFLINE),
-    "--no-overlap": ("overlap", _OFFLINE),
-    "--qps-lo": ("qps_lo", _OFFLINE),
-    "--qps-hi": ("qps_hi", _OFFLINE),
-    "--qps-iters": ("qps_iters", _OFFLINE),
-    "--phase-requests": ("phase_requests", _OFFLINE),
-    "--slo-ttft-ms": ("slo_ttft_ms", _OFFLINE),
-    "--slo-p99-ms": ("slo_p99_ms", _OFFLINE),
     "--warm-restart": ("warm_restart",
                        "warm restart, with the checkpointer"),
     "--profile-start-step": ("profile_start_step", "the profiler window"),
@@ -359,21 +394,111 @@ _UNPORTED = {
 
 
 def _refuse_unported(ap, args) -> None:
-    if args.mode != "sim":
-        ap.error(f"--mode {args.mode} waits for {_OFFLINE} ({_ROADMAP}); "
-                 f"the port runs --mode sim")
     for flag, (dest, what) in _UNPORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             ap.error(f"{flag} waits for {what} ({_ROADMAP})")
 
 
+def _parse_buckets(spec: str, cache_len: int, ap) -> tuple | None:
+    if spec == "none":
+        return None
+    if spec == "pow2":
+        return pow2_buckets(cache_len)
+    try:
+        buckets = tuple(int(b) for b in spec.split(","))
+    except ValueError:
+        ap.error(f"--buckets takes 'pow2', 'none', or a comma list of "
+                 f"ints; got {spec!r}")
+    return buckets
+
+
+def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng):
+    """``--mode offline|loadgen``: the wall-clock saturation harness
+    (DESIGN.md §16) instead of the tick-clock replay.  Returns
+    ``(report, harness)``."""
+    buckets = _parse_buckets(args.buckets, args.cache_len, ap)
+    harness = OfflineInference(
+        cfg, params, n_slots=args.slots, cache_len=args.cache_len,
+        prefill_chunk=args.prefill_chunk, buckets=buckets,
+        replicas=args.replicas, overlap=args.overlap,
+        queue_size=args.queue_size, rns_verify=args.rns_verify,
+        page_size=args.page_size, n_pages=args.pages,
+        prefix_share=args.prefix_share,
+        crypto_slots=args.crypto_slots, crypto_ctx=crypto_ctx,
+        crypto_chunk=args.crypto_chunk,
+    )
+    warm = harness.warmup()
+    print(f"# warmup: {len(warm['warmed_plens'])} prefill width(s) x "
+          f"{warm['replicas']} replica(s) reached: {warm['jit_traces']}")
+    report = {
+        "arch": cfg.name,
+        "mode": args.mode,
+        "engine": "offline-harness",
+        "device": [str(d) for d in harness.devices],
+        "n_slots": args.slots,
+        "cache_len": args.cache_len,
+        "warmup": warm,
+    }
+    if args.mode == "offline":
+        for r in reqs:
+            r.arrival = 0.0   # offline scenario: all available at t=0
+        report.update(harness.run(reqs))
+        harness.require_steady_state()
+        crypto_done = [r for r, _ in harness.completions
+                       if getattr(r, "family", "llm") == "crypto"]
+        if crypto_done:
+            report["crypto"] = _crypto_report(
+                crypto_done, harness.engines[0].crypto_ctx,
+                clock_key="latency_s")
+        if args.rns_verify:
+            report["rns"] = {
+                "slots_verified": harness.replica_set.verify_ok,
+                "slots_failed": harness.replica_set.verify_failed,
+            }
+    else:
+        from ..serve.loadgen import SLO, poisson_requests, search_max_qps
+
+        slo = SLO(ttft_p99_s=args.slo_ttft_ms / 1e3,
+                  latency_p99_s=args.slo_p99_ms / 1e3)
+        rid_counter = [0]
+
+        def make_requests(n, qps):
+            rid0 = rid_counter[0]
+            rid_counter[0] += n
+            return poisson_requests(
+                n, qps, rng, vocab=cfg.vocab, prompt_mean=args.prompt_mean,
+                max_new=args.max_new, cache_len=args.cache_len, rid0=rid0)
+
+        out = search_max_qps(
+            harness, make_requests, slo, qps_lo=args.qps_lo,
+            qps_hi=args.qps_hi, iters=args.qps_iters,
+            phase_requests=args.phase_requests)
+        harness.require_steady_state()
+        report.update(out)
+        print(f"# loadgen: {out['note']}")
+    print(json.dumps(report, indent=1))
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"# wrote report to {args.report}")
+    return report, harness
+
+
 def main(argv=None):
     """Run the driver; returns ``(report, engine)``: the dict printed as
     JSON and the engine that served the workload (its ``params``, ``cfg``,
-    ``cache`` and completed requests)."""
+    ``cache`` and completed requests) — in ``--mode offline|loadgen`` the
+    ``OfflineInference`` harness instead of the engine."""
     ap = _parser()
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
+    if args.mode != "sim" and args.inject_wire_corrupt:
+        ap.error(f"--mode {args.mode} drives the wall-clock harness; "
+                 f"drop --inject-wire-corrupt")
+    if args.mode == "loadgen" and (args.trace or args.crypto_requests
+                                   or args.crypto_slots):
+        ap.error("--mode loadgen synthesizes its own Poisson LLM phases; "
+                 "drop --trace / --crypto-*")
     keep = None
     if args.families is not None:
         keep = {f.strip() for f in args.families.split(",") if f.strip()}
@@ -424,9 +549,13 @@ def main(argv=None):
                  "them out with --families llm)")
 
     params = init_params(cfg, args.seed, args.device)
+    if args.mode != "sim":
+        return _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng)
     engine = ContinuousBatcher(
         cfg, params, n_slots=args.slots, cache_len=args.cache_len,
         prefill_chunk=args.prefill_chunk, rns_verify=args.rns_verify,
+        page_size=args.page_size, n_pages=args.pages,
+        prefix_share=args.prefix_share,
         crypto_slots=args.crypto_slots, crypto_ctx=crypto_ctx,
         crypto_chunk=args.crypto_chunk,
     )
@@ -449,19 +578,25 @@ def main(argv=None):
         "max_concurrency": counters["max_concurrency"],
         "wall_s": round(wall, 3),
         "tok_per_s": round(toks / wall, 1) if wall > 0 else 0.0,
-        "ttft_ticks": _stats([r.t_first - r.arrival for r in done]),
-        "latency_ticks": _stats([r.t_done - r.arrival for r in done]),
+        "ttft_ticks": sample_stats([r.t_first - r.arrival for r in done]),
+        "latency_ticks": sample_stats([r.t_done - r.arrival for r in done]),
         "jit_traces": engine.jit_cache_sizes(),
     }
+    if engine.paged:
+        report["paging"] = engine.page_stats()
     if crypto_done:
         report["crypto"] = _crypto_report(
             crypto_done, engine.crypto_ctx, clock_key="latency_ticks")
     if args.rns_verify:
-        # wire keys: one rid per retired LLM request, and ("crypto", rid)
-        # per modexp (one-shots publish none)
-        keys = [r.rid for r in done] + [
-            ("crypto", r.rid) for r in crypto_done
-            if ("crypto", r.rid) in engine.wire]
+        # wire keys: one rid per retired LLM request on the batched cache,
+        # page ids on the paged pool (only retained shared pages outlive
+        # their readers: freed pages were verified at release), and
+        # ("crypto", rid) per modexp (one-shots publish none)
+        keys = (sorted(k for k in engine.wire.keys()
+                       if not isinstance(k, tuple)) if engine.paged
+                else [r.rid for r in done])
+        keys = keys + [("crypto", r.rid) for r in crypto_done
+                       if ("crypto", r.rid) in engine.wire]
         rns = {
             "slots_verified": sum(engine.verify_log.values()),
             "slots_failed": sum(not v for v in engine.verify_log.values()),

@@ -20,6 +20,12 @@ the reference's decode half does (``attention.py:354-499``).  The new K/V
 are written into the cache tensors in place.  XLA clamps the start of a
 ``dynamic_update_slice`` that would run past the row; a torch index write
 does not, and ``write_positions`` refuses such a write before it is made.
+
+``attn_decode_paged`` is the same decode through a page table
+(``attention.py:501-570``): the new K/V scatter to (page, offset) pairs of
+a pooled buffer (``paged_targets``), and the logical rows are gathered back
+out of the pool for ``decode_attention``.  The reference has no Pallas
+kernel here either: the scatter and the gather are index ops.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ import torch
 from .layers import init_linear, rope
 
 __all__ = ["init_attn", "attention", "attn_forward", "decode_attention",
-           "decode_attention_ring", "attn_decode", "write_positions"]
+           "decode_attention_ring", "attn_decode", "write_positions",
+           "paged_targets", "attn_decode_paged"]
 
 NEG_INF = -1e30
 
@@ -171,19 +178,23 @@ def decode_attention_ring(q, k_cache, v_cache, pos: int):
     return o.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
 
 
-def write_positions(pos, b: int, s: int, S: int, device):
+def write_positions(pos, b: int, s: int, S: int, device, valid_len=None):
     """The first write position of each row, checked to lie in the row.
 
     ``pos``: an int (every row at one position) or one per row, as host
     data (a list, a numpy array or a CPU tensor) or a tensor on ``device``.
     Returns an int, or an int64 ``(b,)`` tensor on ``device``.  Host values
     are checked here: a write of s tokens from p needs 0 <= p and
-    p + s <= S.  A device tensor is not read back (that would wait for the
-    card); torch's own index check refuses a write outside the row."""
+    p + s <= S.  With ``valid_len`` (an int or one host int per row) only
+    that many tokens of each row are real, and only they must fit: the
+    pads after them are routed elsewhere (``paged_targets``).  A device
+    tensor is not read back (that would wait for the card); torch's own
+    index check refuses a write outside the row."""
+    real = s if valid_len is None else np.asarray(valid_len, dtype=np.int64)
     if isinstance(pos, int) or (
             not isinstance(pos, torch.Tensor) and np.ndim(pos) == 0):
         p = int(pos)
-        if p < 0 or p + s > S:
+        if p < 0 or p + int(np.max(real)) > S:
             raise ValueError(f"a write of {s} token(s) at position {p} "
                              f"leaves the cache row of {S} positions")
         return p
@@ -196,7 +207,8 @@ def write_positions(pos, b: int, s: int, S: int, device):
     if tuple(host.shape) != (b,):
         raise ValueError(f"per-row positions {tuple(host.shape)}, "
                          f"expected ({b},)")
-    if b and (int(host.min()) < 0 or int(host.max()) + s > S):
+    if b and (int(host.min()) < 0
+              or int((host + torch.as_tensor(real)).max()) > S):
         raise ValueError(f"a write of {s} token(s) at positions "
                          f"{host.tolist()} leaves the cache rows of {S} "
                          f"positions")
@@ -262,3 +274,92 @@ def attn_decode(p, x, cache, pos, *, heads, kv, hd, theta, ring=False,
     if quant:
         out_cache["ks"], out_cache["vs"] = cache["ks"], cache["vs"]
     return _out(p, o), out_cache
+
+
+def paged_targets(pages, positions, page_size: int, valid_len=None,
+                  scratch=None):
+    """The (physical page, in-page offset) each new token writes, two
+    int64 ``(b, s)`` tensors: position p of row i lands at
+    ``(pages[i, p // page_size], p % page_size)``.
+
+    ``pages``: the ``(b, n_pg)`` int64 page table on the positions' device;
+    ``positions``: ``(b, s)``.  With ``valid_len``/``scratch`` (host ints,
+    or one per row) the tokens of row i from ``valid_len[i]`` on are pads:
+    they go to the row's ``scratch`` page instead of through the table (the
+    reference's padded write barrier), so a pad never lands in a mapped,
+    shared or retained page.  A pad may sit past the logical row; its table
+    lookup is clipped in bounds first, as the reference's is.  Two tokens
+    of one call can share a target only on page 0 (idle rows park there)
+    or on a scratch page, where what is written is never read.
+    """
+    n_pg = pages.shape[1]
+    lp = torch.clamp(torch.div(positions, page_size, rounding_mode="floor"),
+                     0, n_pg - 1)
+    pid = torch.gather(pages, 1, lp)
+    off = torch.remainder(positions, page_size)
+    if valid_len is None:
+        return pid, off
+    b, s = positions.shape
+    if np.ndim(valid_len) == 0 and np.ndim(scratch) == 0:
+        pid[:, int(valid_len):] = int(scratch)
+        return pid, off
+    dev = positions.device
+    valid = torch.as_tensor(np.broadcast_to(np.asarray(valid_len), (b,)),
+                            dtype=torch.int64).to(dev)
+    scr = torch.as_tensor(np.broadcast_to(np.asarray(scratch), (b,)),
+                          dtype=torch.int64).to(dev)
+    keep = torch.arange(s, device=dev)[None, :] < valid[:, None]
+    return torch.where(keep, pid, scr[:, None]), off
+
+
+def attn_decode_paged(p, x, k_pool, v_pool, pages, pos, *, page_size, heads,
+                      kv, hd, theta, window=None, valid_len=None,
+                      scratch=None, targets=None):
+    """Cached decode through a page-table indirection (the reference's
+    DESIGN.md §13).
+
+    KV lives in a pooled buffer of fixed-size pages, ``k_pool``/``v_pool``
+    (P, page_size, g, hd), and row i of ``pages`` ((b, n_pg), a tensor on
+    x's device or host data) names the physical pages behind the row's
+    logical positions 0..n_pg*page_size-1, in order; unmapped entries point
+    at the parking page 0.  x: (b, s, d), s >= 1 new tokens a row from
+    ``pos`` (an int, or one per row: ``write_positions``).  The new K/V
+    project and rotate as in ``attn_decode`` and are written into the pool
+    in place at ``paged_targets``; the logical rows are then gathered,
+    ``k_pool[pages]`` as (b, n_pg*page_size, g, hd), and attended by
+    ``decode_attention``.  The gathered row has the monolithic row's
+    length and order, and what it holds past the written span sits behind
+    the same mask, so the outputs are those of ``attn_decode`` on a
+    monolithic cache bit for bit.
+
+    ``valid_len``/``scratch`` (host ints) are the padded write barrier of
+    bucketed prefill: only the first ``valid_len`` tokens of a row must lie
+    in the row, and the rest are written to its ``scratch`` page.  Pad
+    queries still attend; causal masking keeps every real query from a pad
+    key.  ``targets`` passes ``paged_targets``' pair when a layer stack has
+    made it once for all its layers (``pos`` then is the checked start).
+    Returns (out, k_pool, v_pool).
+    """
+    b, s, _ = x.shape
+    dev = x.device
+    pages = torch.as_tensor(pages, device=dev).to(torch.int64)
+    S = pages.shape[1] * page_size
+    start = write_positions(pos, b, s, S, dev, valid_len)
+    steps = torch.arange(s, device=dev)
+    if isinstance(start, torch.Tensor):
+        positions = start[:, None] + steps[None, :]
+    else:
+        positions = (start + steps).expand(b, s)
+    q, k_new, v_new = _project(p, x, heads, kv, hd)
+    q = rope(q, positions, theta)
+    k_new = rope(k_new, positions, theta)
+    if targets is None:
+        targets = paged_targets(pages, positions, page_size, valid_len,
+                                scratch)
+    pid, off = targets
+    k_pool[pid, off] = k_new.to(k_pool.dtype)
+    v_pool[pid, off] = v_new.to(v_pool.dtype)
+    k_rows = k_pool[pages].reshape(b, S, kv, hd)
+    v_rows = v_pool[pages].reshape(b, S, kv, hd)
+    o = decode_attention(q, k_rows, v_rows, start + s, window=window)
+    return _out(p, o), k_pool, v_pool

@@ -11,7 +11,8 @@
 A parameter tree is a nested dict of tensors with the reference's leaf
 names and shapes (``repro.models.init_params``).  ``decode_step`` takes
 per-row ``(b,)`` positions, and ``extend_step`` appends a whole token chunk
-to a cache: together they carry the continuous-batching serve engine.  The
+to a cache: together they carry the continuous-batching serve engine, on a
+batched cache or, with ``pages=``/``page_size=``, on a paged pool.  The
 three serving functions run under ``torch.inference_mode()`` and write the
 new K/V into the cache's tensors in place.  The port runs the dense family;
 the others (moe, vlm, ssm, hybrid, encdec) raise ``NotImplementedError``
@@ -84,8 +85,9 @@ def extend_step(cfg: ModelConfig, params, cache, tokens, pos,
                 logit_index=None, pages=None, page_size=None,
                 valid_len=None, scratch=None):
     """Append a token chunk (b, C) at positions pos..pos+C-1 to a linear
-    KV cache; returns (logits over all C positions — or just position
-    ``logit_index`` when given — and the cache)."""
+    KV cache or a paged pool (``pages``, ``page_size``; ``valid_len``/
+    ``scratch`` for padded chunks); returns (logits over all C positions —
+    or just position ``logit_index`` when given — and the cache)."""
     _check_family(cfg)
     return transformer.decoder_only_extend(
         cfg, params, cache, tokens, pos, logit_index=logit_index,

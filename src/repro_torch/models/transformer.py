@@ -17,9 +17,12 @@ f32 scales under ``kv_quant``; gemma3's grouped layout under
 ``lk``/``lv`` rings of W slots for the local ones); and ``len``, a host
 int (the reference's int32 scalar), so that no step waits for the card to
 read it.  Decode and extend write the new K/V into the cache's tensors in
-place and return a new dict over them.  The paged pool (``pages=``,
-``valid_len=``, ``scratch=``) and the MoE block come with later slices
-(ROADMAP.md, queue 1).
+place and return a new dict over them.  With ``pages=``/``page_size=`` the
+cache is a paged pool (``serve_step.paged_pool_zeros``: ``k``/``v``
+(L, P, page_size, g, hd)) read and written through a page table
+(``_paged_cache_stack``); ``valid_len=``/``scratch=`` are extend's padded
+write barrier.  The MoE block comes with a later slice (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..dist import _tree
-from .attention import attn_decode, attn_forward, init_attn, write_positions
+from .attention import (attn_decode, attn_decode_paged, attn_forward,
+                        init_attn, paged_targets, write_positions)
 from .config import ModelConfig
 from .layers import embed, gated_mlp, init_linear, init_mlp, init_norm, rms_norm, unembed
 
@@ -163,13 +167,6 @@ def _pad_seq(t, pad: int):
     return F.pad(t, (0, 0, 0, 0, 0, pad))
 
 
-def _no_pages(pages=None, valid_len=None, scratch=None):
-    if pages is not None or valid_len is not None or scratch is not None:
-        raise NotImplementedError(
-            "the paged KV pool (pages=, valid_len=, scratch=) is not ported "
-            "yet (ROADMAP.md, queue 1: the paged pool)")
-
-
 def decoder_only_prefill(cfg: ModelConfig, params, batch, cache_len: int):
     """Prompt pass; returns (last-token logits, cache).
 
@@ -278,11 +275,54 @@ def _linear_cache_stack(cfg: ModelConfig, params, cache, x, pos):
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
+def _paged_cache_stack(cfg: ModelConfig, params, pool, pages, x, pos,
+                       page_size: int, valid_len=None, scratch=None):
+    """The layer stack over the PAGED pool (the reference's DESIGN.md §13):
+    ``pool``'s ``k``/``v`` are (L, P, page_size, g, hd), one buffer of
+    physical pages that every slot shares, and ``pages`` ((b, n_pg)) maps
+    each row's logical pages to physical ones.  The body is
+    ``_linear_cache_stack``'s operation for operation (the same norms,
+    residual order and attention on the gathered rows), so paged and
+    monolithic layouts give the same activations bit for bit.  The
+    positions are checked, and the page table and the write targets made,
+    once for the whole stack.  Returns x after the final norm; the pool's
+    K/V are written in place."""
+    if "ks" in pool or "lk" in pool:
+        raise ValueError("paged pools are linear and fp-only (no int8 KV, "
+                         "no ring caches)")
+    b, s, _ = x.shape
+    dev = x.device
+    pages = torch.as_tensor(pages, device=dev).to(torch.int64)
+    S = pages.shape[1] * page_size
+    pos = write_positions(pos, b, s, S, dev, valid_len)
+    steps = torch.arange(s, device=dev)
+    positions = (pos[:, None] + steps[None, :]
+                 if isinstance(pos, torch.Tensor) else
+                 (pos + steps).expand(b, s))
+    targets = paged_targets(pages, positions, page_size, valid_len, scratch)
+    akw = _attn_kwargs(cfg)
+    for i, (pl, is_global) in enumerate(zip(_layers(params),
+                                            global_flags(cfg))):
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        o, _, _ = attn_decode_paged(
+            pl["attn"], h, pool["k"][i], pool["v"][i], pages, pos,
+            page_size=page_size, window=layer_window(cfg, is_global),
+            valid_len=valid_len, scratch=scratch, targets=targets, **akw)
+        x = _mlp(cfg, pl, x + o)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
 def decoder_only_decode(cfg: ModelConfig, params, cache, tokens, pos,
                         pages=None, page_size=None):
     """One decode step.  tokens: (b, 1); pos: the new token's position, an
-    int or one per row (continuous-batching slots)."""
-    _no_pages(pages)
+    int or one per row (continuous-batching slots).  With ``pages``/
+    ``page_size`` the cache is a paged pool read and written through the
+    page table."""
+    if pages is not None:
+        x = embed(tokens, params["embed"], _dtype(cfg))
+        x = _paged_cache_stack(cfg, params, cache, pages, x, pos, page_size)
+        logits = unembed(x[:, 0], params["embed"])
+        return logits, dict(cache, len=cache["len"] + 1)
     if "lk" in cache:
         return _windowed_decode(cfg, params, cache, tokens, pos)
     x = embed(tokens, params["embed"], _dtype(cfg))
@@ -302,16 +342,26 @@ def decoder_only_extend(cfg: ModelConfig, params, cache, tokens, pos,
     cache); with ``logit_index`` (a chunk position) only that position is
     unembedded, (b, 1, V) — what the serve engine's admission reads.  Ring
     caches are not supported: serve lowers such archs to the masked
-    linear layout.
+    linear layout.  With ``pages``/``page_size`` the chunk lands in a
+    paged pool through the page table; ``valid_len``/``scratch`` (paged
+    only, host ints) send each row's tokens from ``valid_len`` on to its
+    ``scratch`` page instead — the padded write barrier of bucketed
+    prefill over the pool.
     """
-    _no_pages(pages, valid_len, scratch)
     if "lk" in cache:
         raise NotImplementedError(
             "extend over grouped ring caches is unsupported; build the "
             "cache with window_cache=False (full-length + window mask)"
         )
     x = embed(tokens, params["embed"], _dtype(cfg))
-    x = _linear_cache_stack(cfg, params, cache, x, pos)
+    if pages is not None:
+        x = _paged_cache_stack(cfg, params, cache, pages, x, pos, page_size,
+                               valid_len=valid_len, scratch=scratch)
+    else:
+        if valid_len is not None or scratch is not None:
+            raise ValueError("the padded write barrier (valid_len=, "
+                             "scratch=) is a paged-pool construct")
+        x = _linear_cache_stack(cfg, params, cache, x, pos)
     if logit_index is not None:
         C = tokens.shape[1]
         if not 0 <= logit_index < C:

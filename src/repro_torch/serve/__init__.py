@@ -1,12 +1,18 @@
 """Serving layer: the serving steps and cache shapes (``serve_step``), the
-slot scheduler (``scheduler``), the continuous-batching engine
-(``batcher.ContinuousBatcher``: slots, chunked admission prefill, one
-batched decode step, RRNS fingerprints of each request's prompt KV) and the
-big-integer crypto lane it can hold (``crypto``, ``batcher.CryptoEngine``).
-The paged pool, the offline harness and the load generator come with a
-later slice (ROADMAP.md, queue 1)."""
-from .serve_step import cache_zeros, make_decode_step, make_prefill  # noqa: F401
-from .scheduler import Request, Slot, SlotScheduler  # noqa: F401
+slot and paged schedulers (``scheduler``), the continuous-batching engine
+(``batcher.ContinuousBatcher``: slots, chunked or bucketed admission
+prefill, one batched decode step, RRNS fingerprints of each request's
+prompt KV; on a batched cache or a paged, prefix-sharing pool), the
+big-integer crypto lane it can hold (``crypto``, ``batcher.CryptoEngine``),
+and the wall-clock offline harness and closed-loop load generator on top of
+it (``offline``, ``loadgen``)."""
+from .serve_step import (  # noqa: F401
+    cache_zeros, make_decode_step, make_prefill, paged_pool_zeros,
+)
+from .scheduler import (  # noqa: F401
+    PageAllocator, PagedScheduler, PrefixRegistry, Request, Slot,
+    SlotScheduler,
+)
 from .batcher import ContinuousBatcher, CryptoEngine  # noqa: F401
 from .crypto import (  # noqa: F401
     CRYPTO_OPS,
@@ -15,3 +21,8 @@ from .crypto import (  # noqa: F401
     CryptoRequest,
     make_crypto_fns,
 )
+from .offline import (  # noqa: F401
+    CompletionPump, OfflineInference, ReplicaSet, pow2_buckets,
+    replica_devices, sample_stats,
+)
+from .loadgen import SLO, poisson_requests, search_max_qps  # noqa: F401

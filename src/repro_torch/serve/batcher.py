@@ -1,8 +1,9 @@
 """The continuous-batching serve engine (``src/repro/serve/batcher.py``,
 the reference's DESIGN.md §12 and §15): ``CryptoEngine``, the big-integer
-crypto lane, and ``ContinuousBatcher``, the slot engine of the LLM lane,
-which holds a ``CryptoEngine`` when ``crypto_slots >= 1`` and forwards its
-crypto calls to it.  Both families then run under one tick clock and share
+crypto lane, and ``ContinuousBatcher``, the slot engine of the LLM lane (on
+a batched cache or, with ``page_size=``, on a paged, prefix-sharing pool:
+DESIGN.md §13), which holds a ``CryptoEngine`` when ``crypto_slots >= 1``
+and forwards its crypto calls to it.  Both families then run under one tick clock and share
 one wire store and one ``verify_log``.  The attribute names (``sched``,
 ``cache``, ``crypto``, ``crypto_ctx``, ``wire``, ``verify_log``) are the
 reference's, so that callers read both alike.
@@ -41,8 +42,9 @@ from ..core.array import _device
 from ..models import decode_step, extend_step
 from .crypto import (CryptoContext, CryptoLane, encode_exponent,
                      make_crypto_fns)
-from .scheduler import Slot, SlotScheduler
-from .serve_step import Traced, cache_zeros, crypto_state_zeros
+from .scheduler import PagedScheduler, Request, Slot, SlotScheduler
+from .serve_step import (Traced, cache_zeros, crypto_state_zeros,
+                         paged_pool_zeros)
 
 __all__ = ["CryptoEngine", "ContinuousBatcher"]
 
@@ -324,15 +326,27 @@ class ContinuousBatcher:
     request's tokens and KV row are bitwise the same alone or packed
     against any co-resident traffic.
 
+    ``page_size=`` puts the engine on the PAGED pool (the reference's
+    DESIGN.md §13): the cache is one pooled buffer of fixed-size pages, a
+    host-side ``(n_slots, n_pg)`` page table (``PagedScheduler``) maps each
+    slot's logical pages to physical ones, and admission deduplicates shared
+    prompt prefixes.  Shared pages are refcounted and read-only; the first
+    write into one copies it first (copy-on-write, ``_copy_impl``).  The
+    table rides into the decode and extend calls as data (a tensor of fixed
+    shape), and prompts prefill straight into the pool through it (no solo
+    cache, no splice).
+
     ``rns_verify=True`` arms the RNS integrity path: at admission the engine
     fingerprints the slot's immutable prompt region (per-layer K/V sums) and
     encodes it through an RRNS ``GradCodec`` into a channel-major
     ``RnsArray`` wire buffer held in a ``dist.fault.WireStore`` under the
-    request id (on a CUDA cache, through the codec_encode kernel).  Decode
-    never writes below a slot's prompt length, so at retirement the
-    recomputed fingerprint must match bitwise.  ``wire_ok`` detects a
-    corrupted stored buffer and ``repair_wire`` rebuilds the bad channel in
-    place (``dist.fault.repair_packed``).
+    request id — or, on the paged pool, under the PHYSICAL PAGE, so that one
+    codeword covers every reader of a shared page and is checked when the
+    page is freed or evicted (on a CUDA cache, through the codec_encode
+    kernel).  Decode never writes below a slot's prompt length, so at
+    retirement the recomputed fingerprint must match bitwise.  ``wire_ok``
+    detects a corrupted stored buffer and ``repair_wire`` rebuilds the bad
+    channel in place (``dist.fault.repair_packed``).
 
     Parameters
     ----------
@@ -346,7 +360,17 @@ class ContinuousBatcher:
     prefill_buckets : optional ascending prompt-length buckets: admission
         pads the prompt to the smallest bucket >= plen and runs one extend
         call instead of the chunk loop (longer prompts fall back to it).
+        On the paged pool the bucket is chosen by the tokens left to compute
+        after the shared prefix, and the pads go to a one-call scratch page
+        (the padded write barrier).
     rns_verify : arm the RnsArray cache-integrity fingerprints.
+    page_size : pages of this many tokens (must divide ``cache_len`` and
+        align with ``prefill_chunk``); None (default) keeps the batched
+        slot-row cache.
+    n_pages : physical pages in the pool (paged only); default
+        ``1 + n_slots * (cache_len // page_size)``: the parking page and
+        full backing for every slot.  A smaller pool admits by pages.
+    prefix_share : admission-time prompt-prefix dedup (paged only).
     crypto_slots, crypto_ctx, crypto_chunk : the crypto lane
         (``CryptoEngine``); 0 slots (default) disables the family.
 
@@ -367,6 +391,8 @@ class ContinuousBatcher:
                  prefill_chunk: int = 32,
                  prefill_buckets: tuple | None = None,
                  rns_verify: bool = False,
+                 page_size: int | None = None,
+                 n_pages: int | None = None, prefix_share: bool = True,
                  crypto_slots: int = 0, crypto_ctx=None,
                  crypto_chunk: int = 8):
         cfg.validate()
@@ -404,8 +430,10 @@ class ContinuousBatcher:
             )
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
-        self.prefill_chunk = int(prefill_chunk)
+        self.prefill_chunk = C = int(prefill_chunk)
         self.rns_verify = bool(rns_verify)
+        self.paged = page_size is not None
+        self.page_size = int(page_size) if self.paged else None
 
         self.prefill_buckets: tuple[int, ...] | None = None
         if prefill_buckets is not None:
@@ -429,26 +457,94 @@ class ContinuousBatcher:
             self.bucket_pad_tokens = 0
             self.bucket_real_tokens = 0
 
-        self.sched = SlotScheduler(n_slots, cache_len)
-        self._solo = cache_zeros(cfg, 1, cache_len, self.device)
-        self.cache = cache_zeros(cfg, n_slots, cache_len, self.device)
+        if self.paged:
+            ps = self.page_size
+            if cache_len % ps:
+                raise ValueError(
+                    f"page_size={ps} must divide cache_len={cache_len}; "
+                    f"valid page sizes: {divisors}"
+                )
+            if ps % C and C % ps:
+                # page-aligned or chunk-aligned prefill writes; anything
+                # else makes every chunk straddle page ownership checks
+                legal = [d for d in divisors if d % C == 0 or C % d == 0]
+                raise ValueError(
+                    f"page_size={ps} must align with prefill_chunk={C} "
+                    f"(one must divide the other); chunk-compatible page "
+                    f"sizes for cache_len={cache_len}: {legal}"
+                )
+            if ps > 512 and ps % 512:
+                raise ValueError(
+                    f"page_size={ps} beyond one flash chunk must be a "
+                    f"multiple of 512 (the pool abstract runs the chunked "
+                    f"prefill per page); nearest legal page_size: "
+                    f"{ps // 512 * 512} or {-(-ps // 512) * 512}"
+                )
+            n_pg = cache_len // ps
+            if n_pages is None:
+                n_pages = 1 + n_slots * n_pg
+            min_pages = n_pg + 2
+            if n_pages < min_pages:
+                raise ValueError(
+                    f"n_pages={n_pages} cannot guarantee admission of one "
+                    f"max-length request: cache_len={cache_len} / "
+                    f"page_size={ps} = {n_pg} logical pages, plus the "
+                    f"parking page and one page of mid-page-divergence "
+                    f"headroom; minimum n_pages: {min_pages}"
+                )
+            self.n_pages = int(n_pages)
+            self.sched = PagedScheduler(
+                n_slots, cache_len, page_size=ps, n_pages=self.n_pages,
+                prefill_chunk=C, prefix_share=prefix_share,
+                prefill_buckets=self.prefill_buckets,
+            )
+            self._solo = None
+            self.cache = paged_pool_zeros(cfg, self.n_pages, ps, self.device)
+        else:
+            self.sched = SlotScheduler(n_slots, cache_len)
+            self._solo = cache_zeros(cfg, 1, cache_len, self.device)
+            self.cache = cache_zeros(cfg, n_slots, cache_len, self.device)
 
         # The engine's functions; each keeps one argument signature for
-        # the engine's lifetime (fixed shapes; slot ids and positions are
-        # data).
-        self._extend_fn = Traced(
-            lambda p, c, t, pos, idx: extend_step(cfg, p, c, t, pos,
-                                                  logit_index=idx))
-        self._decode_fn = Traced(self._decode_impl)
-        self._insert_fn = Traced(self._insert_impl)
-        self._fp_fn = Traced(self._fp_impl) if rns_verify else None
+        # the engine's lifetime (fixed shapes; slot ids, positions, page
+        # ids and the page table's contents are data).
+        if self.paged:
+            psz = self.page_size
+            # valid/scratch are the padded write barrier: the chunk loop
+            # passes valid = chunk width (every token through the table,
+            # chunk-grid pads included) and the parking page as a dead
+            # scratch; bucketed prefill passes the real tokens and a live
+            # scratch page.  Either way one signature per token width.
+            self._extend_fn = Traced(
+                lambda p, c, t, pos, idx, pg, valid, scr: extend_step(
+                    cfg, p, c, t, pos, logit_index=idx, pages=pg,
+                    page_size=psz, valid_len=valid, scratch=scr))
+            self._decode_fn = Traced(self._decode_paged_impl)
+            self._copy_fn = Traced(self._copy_impl)
+            self._insert_fn = None
+        else:
+            self._extend_fn = Traced(
+                lambda p, c, t, pos, idx: extend_step(cfg, p, c, t, pos,
+                                                      logit_index=idx))
+            self._decode_fn = Traced(self._decode_impl)
+            self._insert_fn = Traced(self._insert_impl)
+            self._copy_fn = None
+        self._fp_fn = (Traced(self._fp_paged_impl if self.paged
+                              else self._fp_impl)
+                       if rns_verify else None)
         if rns_verify:
             from ..dist.fault import WireStore
             from ..dist.grad_codec import GradCodec
 
             # world=1: fingerprints are fresh encodings, wraps=0 repairs
             self.codec = GradCodec.make(world=1, correct=True)
+            # keyed by rid (batched rows) / physical page (paged pool)
             self.wire = WireStore(self.codec)
+            self._page_span: dict = {}
+            # physical page -> rid whose prefill published its codeword, so
+            # corruption found at EVICTION (no retiring request in hand)
+            # still lands in verify_log under a request id
+            self._page_pub: dict = {}
             self.verify_log: dict = {}
 
         # The crypto lane: a CryptoEngine on the same device, sharing this
@@ -480,7 +576,8 @@ class ContinuousBatcher:
 
     @property
     def _wire(self) -> dict:
-        """Raw key -> RnsArray mapping of the wire store."""
+        """Raw key -> RnsArray mapping of the wire store (rid-keyed on the
+        batched cache, page-keyed on the paged pool)."""
         return self.wire.raw
 
     # ------------------------------------------------------ engine functions
@@ -510,6 +607,67 @@ class ContinuousBatcher:
                 for name in ("k", "v")]
         return torch.cat(sums)
 
+    # ------------------------------------------------- paged-pool functions
+    def _decode_paged_impl(self, params, cache, tokens, pos, pages):
+        """Paged twin of ``_decode_impl``: the (n_slots, n_pg) page table
+        routes each row's token write and read gather
+        (``attention.attn_decode_paged``)."""
+        logits, cache = decode_step(self.cfg, params, cache, tokens, pos,
+                                    pages=pages, page_size=self.page_size)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    @torch.inference_mode()
+    def _copy_impl(self, cache, src: int, dst: int):
+        """Copy physical page ``src`` over page ``dst`` on every pool leaf,
+        in place — the device half of copy-on-write."""
+        for leaf in cache.values():
+            if isinstance(leaf, torch.Tensor) and leaf.dim() >= 2:
+                leaf[:, dst] = leaf[:, src]
+        return cache
+
+    @torch.inference_mode()
+    def _fp_paged_impl(self, cache, pid: int, span: int):
+        """Per-layer masked K/V sums over physical page ``pid``'s prompt
+        span [0, span) -> (2L,) f32 fingerprint vector (the paged twin of
+        ``_fp_impl``: one codeword per page, shared by all its readers)."""
+        valid = (torch.arange(self.page_size, device=self.device)
+                 < span).to(torch.float32)
+        sums = [(cache[name][:, pid].to(torch.float32)
+                 * valid[None, :, None, None]).sum(dim=(1, 2, 3))
+                for name in ("k", "v")]
+        return torch.cat(sums)
+
+    def _table(self, rows) -> torch.Tensor:
+        return torch.tensor(rows, dtype=torch.int64, device=self.device)
+
+    # ------------------------------------------------------ paged host glue
+    def _page_codeword(self, pid: int):
+        """Freshly recomputed RRNS codeword of page ``pid``'s stored prompt
+        span."""
+        fp = self._fp_fn(self.cache, pid, self._page_span[pid])
+        return self.codec.encode_array(fp, channel_major=True)
+
+    def _exec_actions(self, actions: list) -> None:
+        """Execute a ``PagedScheduler.plan_write`` action list in order:
+        evictions verify and drop the page's fingerprint (its content is
+        still intact then), copy-on-write runs the page copy, fresh allocs
+        need no device work.  An eviction-verify MISMATCH is recorded in
+        ``verify_log`` under the page's publisher rid (and in the wire
+        stats), not just counted."""
+        for act in actions:
+            if act["op"] == "evict":
+                pid = act["pid"]
+                if self.rns_verify and pid in self.wire:
+                    ok = self.wire.matches(pid, self._page_codeword(pid))
+                    pub = self._page_pub.pop(pid, None)
+                    if not ok:
+                        self.verify_log[pub] = False
+                    self.wire.pop(pid)
+                    self._page_span.pop(pid, None)
+            elif act["op"] == "cow":
+                self.cache = self._copy_fn(self.cache, act["src"],
+                                           act["dst"])
+
     def _fresh_solo(self) -> dict:
         """The solo cache, zeroed: each admission prefills from zeros, as
         the reference's (functional) solo cache does."""
@@ -531,8 +689,11 @@ class ContinuousBatcher:
             or any(q.rid == rid for q in self.sched.queue)
             or any(s.req is not None and s.req.rid == rid
                    for s in self.sched.slots)
-            or rid in self.wire
         )
+        if not self.paged:
+            # batched-row wires are rid-keyed, so the store itself tracks
+            # in-flight and retired-undrained rids
+            held = held or rid in self.wire
         if self._crypto is not None:
             held = held or self._crypto._rid_held(rid)
         return held
@@ -582,6 +743,8 @@ class ContinuousBatcher:
         return admitted
 
     def _prefill_into(self, slot: Slot, now: float) -> None:
+        if self.paged:
+            return self._prefill_into_paged(slot, now)
         req = slot.req
         prompt = [int(t) for t in req.prompt]
         plen, C = len(prompt), self.prefill_chunk
@@ -622,6 +785,93 @@ class ContinuousBatcher:
             # reaches step()'s retirement branch — verify here instead
             self.verify_log[req.rid] = self.verify_request(req)
 
+    def _prefill_into_paged(self, slot: Slot, now: float) -> None:
+        """Paged admission prefill: chunks write straight into the pool
+        through the slot's page-table row.  Positions below
+        ``slot.prefill_start`` are not recomputed — the scheduler mapped
+        registry pages holding that shared prefix at admission; each
+        chunk's write barrier (``plan_write``) allocates or copies the
+        pages the chunk lands on before its extend runs.
+
+        With a bucket ladder, a prompt whose remaining extend fits a bucket
+        prefills in ONE padded call through the padded write barrier: the
+        real span goes through the page table, and every pad token to a
+        one-call scratch page taken from the slot's reservation, so pad K/V
+        never lands in a shared, registered or retained page."""
+        req = slot.req
+        prompt = [int(t) for t in req.prompt]
+        plen, C = len(prompt), self.prefill_chunk
+        start = slot.prefill_start
+        need = plen - start   # tokens the extend computes
+        bucket = self.sched.bucket_for(need)
+        if bucket is not None:
+            self._exec_actions(self.sched.plan_write(slot, start, need))
+            scratch, acts = self.sched.alloc_scratch(slot)
+            self._exec_actions(acts)
+            toks = self._tokens([prompt[start:] + [0] * (bucket - need)])
+            logits, self.cache = self._extend_fn(
+                self.params, self.cache, toks, start, need - 1,
+                self._table([self.sched.table[slot.index]]), need, scratch)
+            self.sched.free_scratch(scratch)
+            self.bucket_hits[bucket] += 1
+            self.bucket_pad_tokens += bucket - need
+            self.bucket_real_tokens += need
+        else:
+            n_chunks = -(-need // C)
+            if self.prefill_buckets is not None:
+                self.bucket_fallbacks += 1
+                self.bucket_pad_tokens += n_chunks * C - need
+                self.bucket_real_tokens += need
+            padded = prompt + [0] * (start + n_chunks * C - plen)
+            last = (plen - 1) - (start + (n_chunks - 1) * C)
+            for ci in range(n_chunks):
+                s0 = start + ci * C
+                self._exec_actions(self.sched.plan_write(slot, s0, C))
+                toks = self._tokens([padded[s0:s0 + C]])
+                idx = last if ci == n_chunks - 1 else 0
+                # chunk-grid pads write through the table (their pages are
+                # reserved for this slot's decode span anyway): valid = the
+                # full width, the parking page as a dead scratch operand
+                logits, self.cache = self._extend_fn(
+                    self.params, self.cache, toks, s0, idx,
+                    self._table([self.sched.table[slot.index]]), C, 0)
+        first = int(torch.argmax(logits[0, 0]))
+        # publish the fully covered prompt pages for later admissions
+        self.sched.register_prompt(slot, prompt)
+        if self.rns_verify:
+            self._fingerprint_prompt_pages(slot, plen)
+        if self.sched.start_decode(slot, first, now):
+            self._retire_paged(req)
+
+    def _fingerprint_prompt_pages(self, slot: Slot, plen: int) -> None:
+        """Encode one RRNS codeword per prompt page of ``slot`` that does
+        not carry one yet — shared registry pages keep their publisher's
+        codeword, so one wire entry covers every reader."""
+        ps = self.page_size
+        for lp, pid in self.sched.slot_pages(slot.index):
+            off = lp * ps
+            if off >= plen:
+                break   # decode-region pages are mutable: never fingerprinted
+            if pid in self.wire:
+                continue
+            self._page_span[pid] = min(ps, plen - off)
+            self._page_pub[pid] = slot.req.rid
+            self.wire.put(pid, self._page_codeword(pid))
+
+    def _retire_paged(self, req: Request) -> None:
+        """Paged retirement: verify the request's prompt-page fingerprints
+        while its table row is still mapped, then release the row —
+        ``'freed'`` pages drop their codewords (already verified),
+        ``'retained'``/``'shared'`` pages keep them for later or current
+        readers."""
+        if self.rns_verify:
+            self.verify_log[req.rid] = self.verify_request(req)
+        for pid, disp in self.sched.release_pages(req.slot_index):
+            if disp == "freed" and self.rns_verify:
+                self.wire.pop(pid)
+                self._page_span.pop(pid, None)
+                self._page_pub.pop(pid, None)
+
     # --------------------------------------------------------- decode loop
     def step(self, now: float = 0.0) -> list:
         """One batched decode step over every DECODE slot, plus one
@@ -632,9 +882,18 @@ class ContinuousBatcher:
         decoding = self.sched.decoding_slots()
         if not decoding:
             return crypto_retired
+        if self.paged:
+            # write barrier for this step's one-token writes: a page
+            # boundary allocates, divergence into a shared page copies —
+            # all before the table's snapshot rides into the decode step
+            for slot in decoding:
+                self._exec_actions(
+                    self.sched.plan_write(slot, slot.next_pos, 1))
         toks, poss = self.sched.step_rows()
-        nxt, self.cache = self._decode_fn(
-            self.params, self.cache, self._tokens(toks)[:, None], poss)
+        args = [self.params, self.cache, self._tokens(toks)[:, None], poss]
+        if self.paged:
+            args.append(self._table(self.sched.table))
+        nxt, self.cache = self._decode_fn(*args)
         nxt = nxt.tolist()
         retired = []
         for slot in decoding:
@@ -642,7 +901,9 @@ class ContinuousBatcher:
             req = slot.req
             if self.sched.record_token(slot, nxt[slot.index], now):
                 retired.append(req)
-                if self.rns_verify:
+                if self.paged:
+                    self._retire_paged(req)
+                elif self.rns_verify:
                     self.verify_log[req.rid] = self.verify_request(req)
         return retired + crypto_retired
 
@@ -679,19 +940,25 @@ class ContinuousBatcher:
             for r in done:
                 if getattr(r, "family", "llm") == "crypto":
                     self.wire.pop(("crypto", r.rid), None)
-                else:
+                elif not self.paged:
+                    # paged wires are page-keyed and already released
+                    # with their pages at retirement
                     self.wire.pop(r.rid, None)
                 self.verify_log.pop(r.rid, None)
         return done
 
     def jit_cache_sizes(self) -> dict:
         """Argument signatures per engine function (``serve_step.Traced``)
-        under the reference's keys: every value stays 1 for the engine's
-        lifetime (with ``prefill_buckets``, ``extend`` stays at the number
-        of distinct padded widths used)."""
+        under the reference's keys (``copy`` on the paged pool in place of
+        ``insert``): every value stays 1 for the engine's lifetime (with
+        ``prefill_buckets``, ``extend`` stays at the number of distinct
+        padded widths used)."""
         sizes = {"decode": self._decode_fn._cache_size(),
-                 "extend": self._extend_fn._cache_size(),
-                 "insert": self._insert_fn._cache_size()}
+                 "extend": self._extend_fn._cache_size()}
+        if self.paged:
+            sizes["copy"] = self._copy_fn._cache_size()
+        else:
+            sizes["insert"] = self._insert_fn._cache_size()
         if self._fp_fn is not None:
             sizes["fingerprint"] = self._fp_fn._cache_size()
         if self._crypto is not None:
@@ -711,7 +978,9 @@ class ContinuousBatcher:
     def bucket_stats(self) -> dict:
         """Bucketed-prefill accounting: hits per width, chunk-loop
         fallbacks, and pad overhead (pad tokens / real tokens) over all
-        prefill traffic."""
+        prefill traffic.  On the paged pool "real" means the tokens the
+        extend computed: a shared prefix mapped from the registry is
+        neither padded nor recomputed."""
         if self.prefill_buckets is None:
             raise RuntimeError("engine built without prefill_buckets=")
         real = self.bucket_real_tokens
@@ -724,34 +993,58 @@ class ContinuousBatcher:
             "pad_overhead": (self.bucket_pad_tokens / real) if real else 0.0,
         }
 
+    def page_stats(self) -> dict:
+        """Pool, dedup and copy-on-write counters (paged only), plus the
+        wire's verify/repair counters under ``rns_verify`` — the ``paging``
+        block of the serve CLI's report."""
+        if not self.paged:
+            raise RuntimeError("engine built without page_size=")
+        stats = self.sched.page_stats()
+        if self.rns_verify:
+            stats["fingerprints"] = dict(self.wire.stats)
+        return stats
+
     # ------------------------------------------------- RNS integrity path
     def _require_verify(self):
         if not self.rns_verify:
             raise RuntimeError("engine built without rns_verify=True")
 
     def verify_request(self, req) -> bool:
-        """Recompute ``req``'s prompt-region fingerprint and compare its RNS
-        encoding bitwise against the stored wire buffer (one codeword over
-        the slot row's [0, plen), keyed by rid).  Valid until the row is
-        reused by a later admission; the engine calls this automatically
-        at retirement.  Crypto-family requests verify their lane slot's
-        immutable rows (``CryptoEngine.verify_request``)."""
+        """Recompute ``req``'s prompt-region fingerprints and compare their
+        RNS encodings bitwise against the stored wire buffers: one codeword
+        over the slot row's [0, plen), keyed by rid, or on the paged pool
+        one per mapped prompt PAGE of the slot's table row (a shared page
+        checks against its publisher's codeword).  Valid until the row or
+        pages are reused by a later admission; the engine calls this
+        automatically at retirement.  Crypto-family requests verify their
+        lane slot's immutable rows (``CryptoEngine.verify_request``)."""
         self._require_verify()
         if getattr(req, "family", "llm") == "crypto":
             return self._crypto.verify_request(req)
+        if self.paged:
+            ok = True
+            for lp, pid in self.sched.slot_pages(req.slot_index):
+                if lp * self.page_size >= len(req.prompt):
+                    break   # decode-region pages carry no fingerprints
+                if pid in self.wire:
+                    ok &= self.wire.matches(pid, self._page_codeword(pid))
+            return ok
         fp = self._fp_fn(self.cache, req.slot_index, len(req.prompt))
         fresh = self.codec.encode_array(fp, channel_major=True)
         return self.wire.matches(req.rid, fresh)
 
     def wire_ok(self, key) -> bool:
         """Codeword self-consistency of one stored wire buffer (RRNS
-        redundant-channel check), without touching the cache."""
+        redundant-channel check), without touching the cache.  ``key`` is a
+        rid on the batched cache, a physical page id on the paged pool."""
         self._require_verify()
         return self.wire.ok(key)
 
     def repair_wire(self, key) -> dict:
         """Locate-and-correct one stored wire buffer in place via
-        ``dist.fault.repair_packed``; returns its report dict."""
+        ``dist.fault.repair_packed``; returns its report dict.  On the
+        paged pool a shared page's buffer is repaired once, and every
+        reader re-verifies against the fixed codeword."""
         self._require_verify()
         return self.wire.repair(key)
 

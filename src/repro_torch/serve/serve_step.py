@@ -2,10 +2,11 @@
 
 ``make_prefill``/``make_decode_step`` wrap the model's serving functions
 with the reference's fixed (params, batch) and (params, cache, tokens, pos)
-signatures (``repro/serve/serve_step.py``).  ``cache_zeros`` and
-``crypto_state_zeros`` are the reference's ``cache_abstract`` and
-``crypto_state_abstract`` made concrete: torch has no abstract shapes to
-trace against, so the shapes are reckoned from the configuration.
+signatures (``repro/serve/serve_step.py``).  ``cache_zeros``,
+``paged_pool_zeros`` and ``crypto_state_zeros`` are the reference's
+``cache_abstract``, ``paged_pool_abstract`` and ``crypto_state_abstract``
+made concrete: torch has no abstract shapes to trace against, so the shapes
+are reckoned from the configuration.
 
 ``Traced`` is the port's form of the reference's no-retrace census: the
 reference counts the graphs ``jax.jit`` compiled for each engine function
@@ -21,7 +22,7 @@ from ..models import decode_step, prefill
 from ..models.transformer import _dtype, global_flags
 
 __all__ = ["make_prefill", "make_decode_step", "cache_zeros",
-           "crypto_state_zeros", "Traced"]
+           "paged_pool_zeros", "crypto_state_zeros", "Traced"]
 
 
 def make_prefill(cfg, cache_len: int):
@@ -76,6 +77,29 @@ def cache_zeros(cfg, batch: int, cache_len: int, device="cuda") -> dict:
     cache["k"] = zeros(L, batch, cache_len, g, hd, dtype=dt)
     cache["v"] = zeros(L, batch, cache_len, g, hd, dtype=dt)
     return cache
+
+
+def paged_pool_zeros(cfg, n_pages: int, page_size: int,
+                     device="cuda") -> dict:
+    """The all-zero PAGED pool (the reference's DESIGN.md §13): k/v leaves
+    of shape (L, n_pages, page_size, g, hd), and ``len``.  It is
+    ``cache_zeros`` with the page pool standing in for the batch axis and
+    one page for the sequence axis: pages are interchangeable fixed-size
+    row fragments that a page table recomposes into logical rows when they
+    are read.  Only the linear fp layout is paged (the serve engine lowers
+    ring caches and refuses int8 ones).
+
+    >>> from repro_torch.configs import get_config
+    >>> p = paged_pool_zeros(get_config("gemma-2b").smoke(), 9, 8, "cpu")
+    >>> tuple(p["k"].shape), p["len"]
+    ((2, 9, 8, 1, 32), 0)
+    """
+    if cfg.window and cfg.window_cache:
+        raise ValueError("a paged pool holds linear rows; build it with "
+                         "window_cache=False (full-length + window mask)")
+    if cfg.kv_quant:
+        raise ValueError("paged pools are fp-only (no int8 KV)")
+    return cache_zeros(cfg, n_pages, page_size, device)
 
 
 def crypto_state_zeros(ctx, n_slots: int, device="cuda") -> dict:

@@ -922,7 +922,7 @@ def test_serve_cli_crypto_subprocess():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mode", "offline"], "serve slice"),
+    (["--mode", "loadgen", "--crypto-slots", "1"], "drop --trace"),
     (["--families", "crypto,audio", "--crypto-slots", "1"], "subset"),
     (["--crypto-requests", "2"], "crypto-slots"),
     (["--families", "crypto", "--crypto-slots", "2"], "crypto-requests"),

@@ -308,15 +308,7 @@ def test_extend_all_positions_and_make_steps_match_reference():
     close(make_decode_step(tc)(tp, gc, T_([[3]]), 20)[0], want)
 
 
-def test_paged_arguments_name_the_roadmap():
-    tc = configs.get_config("gemma-2b").smoke()
-    params = init_params(tc, 0, "cpu")
-    cache = cache_zeros(tc, 1, 16, "cpu")
-    tok = torch.zeros(1, 1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="paged.*ROADMAP"):
-        decode_step(tc, params, cache, tok, 0, pages=torch.zeros(1, 2))
-    with pytest.raises(NotImplementedError, match="paged.*ROADMAP"):
-        extend_step(tc, params, cache, tok, 0, valid_len=1)
+def test_unported_family_prefill_names_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
         prefill(configs.get_config("mamba2-370m").smoke(), {}, {}, 16)
 
@@ -839,13 +831,6 @@ def test_serve_cli_mixed_families_in_process(capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mode", "offline"], "offline harness"),
-    (["--mode", "loadgen"], "offline harness"),
-    (["--page-size", "8"], "paged pool"),
-    (["--pages", "9"], "paged pool"),
-    (["--no-prefix-share"], "paged pool"),
-    (["--buckets", "pow2"], "offline harness"),
-    (["--replicas", "2"], "offline harness"),
     (["--warm-restart", "d"], "warm restart"),
     (["--profile-steps", "2"], "profiler window"),
     (["--arch", "mamba2-370m"], "other families"),
@@ -861,7 +846,7 @@ def test_serve_cli_refuses_unported_flags(argv, what, capsys):
 
 def test_serve_cli_refusal_in_a_subprocess(tmp_path):
     out = run_cli("repro_torch.launch.serve",
-                  ["--device", "cpu", "--mode", "offline"], tmp_path)
+                  ["--device", "cpu", "--warm-restart", "d"], tmp_path)
     assert out.returncode != 0 and "ROADMAP.md" in out.stderr
     assert out.stdout == ""
 
