@@ -65,9 +65,16 @@ counters.
 ``main`` returns ``(report, engine)`` in ``sim`` and ``(report, harness)``
 (the ``OfflineInference``) in the other modes.
 
+The engine serves the dense and moe families.  A vlm arch, which the
+engine gates out, falls back in ``sim`` to ``simulate_single_shot``: one
+request at a time, a prefill of the patches and the prompt, then
+scalar-position decode steps (``"engine": "single-shot"`` in the report,
+engine None); ``--rns-verify`` and the crypto lane need the engine and
+raise there.
+
 Not ported yet, each refused with the ROADMAP item it waits for:
 ``--warm-restart``, the profiler window (``--profile-*``), and the
-families other than dense.
+other families (ssm, hybrid, encdec).
 """
 from __future__ import annotations
 
@@ -78,16 +85,18 @@ import time
 from collections import Counter
 
 import numpy as np
+import torch
 
 from ..configs import get_config
-from ..models import init_params
+from ..models import decode_step, init_params, prefill
+from ..models.model import _PORTED
 from ..serve.batcher import ContinuousBatcher
 from ..serve.crypto import CryptoContext, CryptoRequest
 from ..serve.offline import OfflineInference, pow2_buckets, sample_stats
 from ..serve.scheduler import Request
 
-__all__ = ["main", "simulate", "synth_requests", "synth_crypto_requests",
-           "load_trace", "save_trace"]
+__all__ = ["main", "simulate", "simulate_single_shot", "synth_requests",
+           "synth_crypto_requests", "load_trace", "save_trace"]
 
 FAMILIES = ("llm", "crypto")
 _TRIES = 4096   # rejection-sampling tries drawn per block
@@ -253,6 +262,51 @@ def simulate(engine: ContinuousBatcher, reqs: list) -> dict:
         elif i < len(reqs):
             t = math.ceil(reqs[i].arrival)  # idle: fast-forward the clock
     return {"steps": steps, "max_concurrency": max_conc}
+
+
+def simulate_single_shot(cfg, params, reqs: list, rng, device) -> tuple:
+    """Sequential one-request-at-a-time serving for the families the
+    continuous batcher gates out (the port's: vlm): a prefill of the whole
+    prompt (behind the vlm patches, drawn from ``rng`` per request as the
+    reference draws them) into a cache of prompt + patches + max_new
+    positions, then scalar-position decode steps.  The tick clock counts
+    one tick per generated token.  Returns (completed requests, counters)
+    like ``simulate``."""
+    n_patches = cfg.n_patches if cfg.family == "vlm" else 0
+    t, steps = 0.0, 0
+    for r in sorted(reqs, key=lambda q: q.arrival):
+        t = max(t, r.arrival)
+        r.t_admit = t
+        cache_len = len(r.prompt) + r.max_new + n_patches
+        batch = {"tokens": torch.tensor([r.prompt], dtype=torch.int32,
+                                        device=device)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.from_numpy(rng.standard_normal(
+                (1, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+                device)
+        logits, cache = prefill(cfg, params, batch, cache_len)
+        tok = int(torch.argmax(logits[0]))
+        t += 1.0
+        steps += 1
+        r.out.append(tok)
+        r.t_first = t
+        base = len(r.prompt) + n_patches
+        i = 0
+        while len(r.out) < r.max_new and not (
+            r.eos is not None and tok == r.eos
+        ):
+            lg, cache = decode_step(
+                cfg, params, cache,
+                torch.tensor([[tok]], dtype=torch.int32, device=device),
+                base + i)
+            tok = int(torch.argmax(lg[0]))
+            r.out.append(tok)
+            t += 1.0
+            steps += 1
+            i += 1
+        r.t_done = t
+    return sorted(reqs, key=lambda q: q.rid), \
+        {"steps": steps, "max_concurrency": 1}
 
 
 def _crypto_report(crypto_done: list, ctx, *, clock_key: str) -> dict:
@@ -512,10 +566,10 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     cfg.validate()
-    if cfg.family != "dense":
-        ap.error(f"{cfg.name} is of the {cfg.family!r} family; the "
-                 f"single-shot fallback and the other families wait for "
-                 f"their slices ({_ROADMAP}); the port serves dense archs")
+    if cfg.family not in _PORTED:
+        ap.error(f"{cfg.name} is of the {cfg.family!r} family; the other "
+                 f"families wait for their slices ({_ROADMAP}); the port "
+                 f"serves {', '.join(_PORTED)} archs")
     rng = np.random.default_rng(args.seed)
     crypto_ctx = (CryptoContext(n_limbs=args.crypto_limbs,
                                 exp_bits=args.crypto_exp_bits)
@@ -551,26 +605,42 @@ def main(argv=None):
     params = init_params(cfg, args.seed, args.device)
     if args.mode != "sim":
         return _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng)
-    engine = ContinuousBatcher(
-        cfg, params, n_slots=args.slots, cache_len=args.cache_len,
-        prefill_chunk=args.prefill_chunk, rns_verify=args.rns_verify,
-        page_size=args.page_size, n_pages=args.pages,
-        prefix_share=args.prefix_share,
-        crypto_slots=args.crypto_slots, crypto_ctx=crypto_ctx,
-        crypto_chunk=args.crypto_chunk,
-    )
+    try:
+        engine = ContinuousBatcher(
+            cfg, params, n_slots=args.slots, cache_len=args.cache_len,
+            prefill_chunk=args.prefill_chunk, rns_verify=args.rns_verify,
+            page_size=args.page_size, n_pages=args.pages,
+            prefix_share=args.prefix_share,
+            crypto_slots=args.crypto_slots, crypto_ctx=crypto_ctx,
+            crypto_chunk=args.crypto_chunk,
+        )
+    except NotImplementedError as err:
+        if args.rns_verify:
+            raise  # the integrity path needs the slot engine
+        if crypto_ctx is not None:
+            raise  # so does the crypto lane (no single-shot crypto path)
+        print(f"# {cfg.name}: {err}")
+        print("# falling back to single-shot sequential serving")
+        engine = None
     t0 = time.time()
-    counters = simulate(engine, reqs)
+    crypto_done = []
+    if engine is not None:
+        counters = simulate(engine, reqs)
+        done = engine.sched.completed
+        if engine.crypto is not None:
+            crypto_done = engine.crypto.completed
+    else:
+        done, counters = simulate_single_shot(cfg, params, reqs, rng,
+                                              args.device)
     wall = time.time() - t0
-    done = engine.sched.completed
-    crypto_done = engine.crypto.completed if engine.crypto is not None else []
 
     toks = sum(len(r.out) for r in done)
     report = {
         "arch": cfg.name,
-        "engine": "continuous",
-        "device": str(engine.device),
-        "n_slots": args.slots,
+        "engine": "continuous" if engine is not None else "single-shot",
+        "device": str(engine.device if engine is not None
+                      else params["embed"].device),
+        "n_slots": args.slots if engine is not None else 1,
         "cache_len": args.cache_len,
         "requests": len(done) + len(crypto_done),
         "tokens_out": toks,
@@ -580,10 +650,11 @@ def main(argv=None):
         "tok_per_s": round(toks / wall, 1) if wall > 0 else 0.0,
         "ttft_ticks": sample_stats([r.t_first - r.arrival for r in done]),
         "latency_ticks": sample_stats([r.t_done - r.arrival for r in done]),
-        "jit_traces": engine.jit_cache_sizes(),
     }
-    if engine.paged:
-        report["paging"] = engine.page_stats()
+    if engine is not None:
+        report["jit_traces"] = engine.jit_cache_sizes()
+        if engine.paged:
+            report["paging"] = engine.page_stats()
     if crypto_done:
         report["crypto"] = _crypto_report(
             crypto_done, engine.crypto_ctx, clock_key="latency_ticks")

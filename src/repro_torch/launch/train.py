@@ -19,8 +19,9 @@ else a group of one.
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
         --rns-allreduce
 
-It prints one line a step and, last, one JSON summary line: the losses, the
-step times, tokens/s and the peak device memory.  Checkpointing and the
+It prints one line a step and, last, one JSON summary line: the losses,
+the MoE aux losses (0 for the other families), the step times, tokens/s
+and the peak device memory.  Checkpointing and the
 profiler window come with later slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -187,7 +188,7 @@ def main(argv=None):
     summary = {"arch": cfg.name, "device": str(device), "world": world,
                "rns": bool(args.rns_allreduce or args.rns_correct),
                "batch": args.batch, "seq": args.seq, "losses": [],
-               "gnorms": [], "step_ms": [], "tokens_per_s": []}
+               "auxes": [], "gnorms": [], "step_ms": [], "tokens_per_s": []}
     try:
         for _ in range(args.steps):
             step, batch = prefetch.next()
@@ -204,6 +205,7 @@ def main(argv=None):
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
             summary["losses"].append(metrics["loss"])
+            summary["auxes"].append(metrics["aux"])
             summary["gnorms"].append(metrics["gnorm"])
             summary["step_ms"].append(1e3 * dt)
             summary["tokens_per_s"].append(args.batch * args.seq / dt)

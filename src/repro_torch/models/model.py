@@ -14,9 +14,11 @@ per-row ``(b,)`` positions, and ``extend_step`` appends a whole token chunk
 to a cache: together they carry the continuous-batching serve engine, on a
 batched cache or, with ``pages=``/``page_size=``, on a paged pool.  The
 three serving functions run under ``torch.inference_mode()`` and write the
-new K/V into the cache's tensors in place.  The port runs the dense family;
-the others (moe, vlm, ssm, hybrid, encdec) raise ``NotImplementedError``
-until their slices land (ROADMAP.md, queue 1).
+new K/V into the cache's tensors in place.  The port runs the dense, moe
+and vlm families; ``extend_step`` and a paged ``decode_step`` take the
+text-only ones (dense, moe), as the reference's do.  The others (ssm,
+hybrid, encdec) raise ``NotImplementedError`` until their slices land
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from .config import ModelConfig
 __all__ = ["init_params", "abstract_params", "train_logits", "prefill",
            "decode_step", "extend_step", "params_from_reference"]
 
-_PORTED = ("dense",)
+_PORTED = ("dense", "moe", "vlm")
+_TEXT_ONLY = ("dense", "moe")   # the families extend and paging take
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -76,6 +79,11 @@ def prefill(cfg: ModelConfig, params, batch, cache_len: int):
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                 pages=None, page_size=None):
     _check_family(cfg)
+    if pages is not None and cfg.family not in _TEXT_ONLY:
+        raise NotImplementedError(
+            f"paged decode supports text-only linear-KV transformer "
+            f"families (dense/moe), not {cfg.family}"
+        )
     return transformer.decoder_only_decode(cfg, params, cache, tokens, pos,
                                            pages=pages, page_size=page_size)
 
@@ -87,8 +95,15 @@ def extend_step(cfg: ModelConfig, params, cache, tokens, pos,
     """Append a token chunk (b, C) at positions pos..pos+C-1 to a linear
     KV cache or a paged pool (``pages``, ``page_size``; ``valid_len``/
     ``scratch`` for padded chunks); returns (logits over all C positions —
-    or just position ``logit_index`` when given — and the cache)."""
+    or just position ``logit_index`` when given — and the cache).  The vlm
+    family is refused: its cache reserves positions 0..P-1 for the patches,
+    which only a full prefill places."""
     _check_family(cfg)
+    if cfg.family not in _TEXT_ONLY:
+        raise NotImplementedError(
+            f"extend_step supports text-only linear-KV transformer families "
+            f"(dense/moe), not {cfg.family}"
+        )
     return transformer.decoder_only_extend(
         cfg, params, cache, tokens, pos, logit_index=logit_index,
         pages=pages, page_size=page_size, valid_len=valid_len,

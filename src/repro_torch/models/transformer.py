@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack (the dense family): init, the training
-forward, prefill, decode and extend, as the reference's
+"""Decoder-only transformer stacks (the dense, moe and vlm families): init,
+the training forward, prefill, decode and extend, as the reference's
 ``repro/models/transformer.py`` builds them.
 
 Parameters keep the reference's tree, leaf names and shapes: the layers are
@@ -8,7 +8,12 @@ codec's wire buffer holds the leaves in the reference's order.  The stack
 is a Python loop over the layers, each reading its slice of the stacked
 leaves; gemma3's 5:1 local:global pattern is a per-layer window.  With
 ``cfg.remat`` each training layer runs under ``torch.utils.checkpoint`` and
-is recomputed in the backward pass.
+is recomputed in the backward pass.  The moe family's blocks hold a
+``moe`` subtree in place of ``mlp`` (``models/moe.py``), and the stack
+sums the blocks' aux losses; the vlm family prepends ``batch["patches"]``
+(b, P, d), cast to the compute dtype, to the embedded tokens of a training
+forward or a prefill: the logits cover the text positions only, and the
+cache holds the patches at positions 0..P-1.
 
 The serving half keeps the reference's cache tree: ``k``/``v``
 (L, b, S, g, hd) in the compute dtype, or int8 with ``ks``/``vs`` (L, b, g)
@@ -21,8 +26,7 @@ place and return a new dict over them.  With ``pages=``/``page_size=`` the
 cache is a paged pool (``serve_step.paged_pool_zeros``: ``k``/``v``
 (L, P, page_size, g, hd)) read and written through a page table
 (``_paged_cache_stack``); ``valid_len=``/``scratch=`` are extend's padded
-write barrier.  The MoE block comes with a later slice (ROADMAP.md,
-queue 1).
+write barrier.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from .attention import (attn_decode, attn_decode_paged, attn_forward,
                         init_attn, paged_targets, write_positions)
 from .config import ModelConfig
 from .layers import embed, gated_mlp, init_linear, init_mlp, init_norm, rms_norm, unembed
+from .moe import init_moe, moe_forward
 
 __all__ = ["NO_WINDOW", "global_flags", "layer_window", "init_dense_block",
            "init_decoder_only", "decoder_stack", "decoder_only_logits",
@@ -72,17 +77,21 @@ def layer_window(cfg: ModelConfig, is_global):
 
 # --------------------------------------------------------------------- init
 def init_dense_block(gen, cfg: ModelConfig, dt, device, lead=()):
-    """One dense block's parameters; ``lead`` prefixes each shape (the
-    stacked layer axis)."""
+    """One block's parameters, an MoE FFN for the moe family; ``lead``
+    prefixes each shape (the stacked layer axis)."""
     lead = tuple(lead)
     d = cfg.d_model
-    return {
+    p = {
         "ln1": init_norm(lead + (d,), dt, device),
         "attn": init_attn(gen, d, cfg.n_heads, cfg.n_kv, cfg.head_dim, dt,
                           device, lead),
         "ln2": init_norm(lead + (d,), dt, device),
-        "mlp": init_mlp(gen, d, cfg.d_ff, dt, device, lead),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg, dt, device, lead)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt, device, lead)
+    return p
 
 
 def init_decoder_only(gen, cfg: ModelConfig, device):
@@ -101,8 +110,13 @@ def _attn_kwargs(cfg: ModelConfig) -> dict:
 
 
 def _mlp(cfg: ModelConfig, pl, x):
+    """The FFN half of a block: (x + FFN(norm(x)), the layer's aux loss,
+    None for a dense FFN)."""
     h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
-    return x + gated_mlp(h2, pl["mlp"]["wi"], pl["mlp"]["wo"], cfg.act)
+    if cfg.family == "moe":
+        y, aux = moe_forward(pl["moe"], cfg, h2)
+        return x + y, aux
+    return x + gated_mlp(h2, pl["mlp"]["wi"], pl["mlp"]["wo"], cfg.act), None
 
 
 def _block(cfg: ModelConfig, pl, x, positions, window):
@@ -116,7 +130,7 @@ def _block_kv(cfg: ModelConfig, pl, x, positions, window):
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     o, kv = attn_forward(pl["attn"], h, positions, window=window,
                          return_kv=True, **_attn_kwargs(cfg))
-    return _mlp(cfg, pl, x + o), kv
+    return _mlp(cfg, pl, x + o)[0], kv
 
 
 def _layers(params):
@@ -129,36 +143,50 @@ def _layers(params):
 
 def decoder_stack(cfg: ModelConfig, params, x, positions, *,
                   collect_kv=False):
-    """Run the layer stack.  Returns (x, aux_loss, kv): aux is 0 for dense;
-    kv is None, or with ``collect_kv`` the stacked (k, v), (L, b, s, g, hd)
-    each, that a prefill writes into the cache."""
+    """Run the layer stack.  Returns (x, aux_loss, kv): aux is the sum of
+    the MoE layers' aux losses in layer order (0 for dense); kv is None, or
+    with ``collect_kv`` the stacked (k, v), (L, b, s, g, hd) each, that a
+    prefill writes into the cache."""
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pl, is_global in zip(_layers(params), global_flags(cfg)):
         window = layer_window(cfg, is_global)
+        a = None
         if collect_kv:
             x, (k, v) = _block_kv(cfg, pl, x, positions, window)
             ks.append(k)
             vs.append(v)
         elif cfg.remat:
-            x = checkpoint(_block, cfg, pl, x, positions, window,
-                           use_reentrant=False)
+            x, a = checkpoint(_block, cfg, pl, x, positions, window,
+                              use_reentrant=False)
         else:
-            x = _block(cfg, pl, x, positions, window)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _block(cfg, pl, x, positions, window)
+        if a is not None:
+            aux = aux + a
     return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
                     else None)
 
 
-def decoder_only_logits(cfg: ModelConfig, params, batch):
-    """Training forward.  batch["tokens"]: (b, s) inputs.  Returns (logits,
-    aux); the unembedding is tied to ``embed``."""
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    """The embedded tokens, behind the vlm family's patches: (x, P)."""
     dt = _dtype(cfg)
     x = embed(batch["tokens"], params["embed"], dt)
+    if cfg.family != "vlm":
+        return x, 0
+    patches = batch["patches"].to(dt)
+    return torch.cat([patches, x], dim=1), patches.shape[1]
+
+
+def decoder_only_logits(cfg: ModelConfig, params, batch):
+    """Training forward.  batch["tokens"]: (b, s) inputs; the vlm family's
+    batch["patches"] (b, P, d) go before them.  Returns (logits over the
+    text positions, aux); the unembedding is tied to ``embed``."""
+    x, n_prefix = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     x, aux, _ = decoder_stack(cfg, params, x, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(x, params["embed"]), aux
+    return unembed(x[:, n_prefix:], params["embed"]), aux
 
 
 # ------------------------------------------------------------------ serving
@@ -173,10 +201,10 @@ def decoder_only_prefill(cfg: ModelConfig, params, batch, cache_len: int):
     Cache: {"k", "v"}: (L, b, S, g, hd) with S = cache_len, and "len".
     With cfg.window and cfg.window_cache the local layers keep only a
     W-slot ring (``_windowed_cache``); under cfg.kv_quant the cache is
-    int8 with per-(layer, row, kv head) scales.
+    int8 with per-(layer, row, kv head) scales.  The vlm family's patches
+    take positions 0..P-1 ahead of the prompt.
     """
-    dt = _dtype(cfg)
-    x = embed(batch["tokens"], params["embed"], dt)
+    x, _ = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     x, _, (k_new, v_new) = decoder_stack(cfg, params, x, positions,
@@ -246,7 +274,7 @@ def _windowed_decode(cfg: ModelConfig, params, cache, tokens, pos):
             o, _ = attn_decode(pl["attn"], h, {"k": lk[li], "v": lv[li]},
                                pos, ring=True, **akw)
             li += 1
-        x = _mlp(cfg, pl, x + o)
+        x, _ = _mlp(cfg, pl, x + o)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x[:, 0], params["embed"])
     return logits, dict(cache, len=cache["len"] + 1)
@@ -271,7 +299,7 @@ def _linear_cache_stack(cfg: ModelConfig, params, cache, x, pos):
         h = rms_norm(x, pl["ln1"], cfg.norm_eps)
         o, _ = attn_decode(pl["attn"], h, layer_cache, pos,
                            window=layer_window(cfg, is_global), **akw)
-        x = _mlp(cfg, pl, x + o)
+        x, _ = _mlp(cfg, pl, x + o)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -308,7 +336,7 @@ def _paged_cache_stack(cfg: ModelConfig, params, pool, pages, x, pos,
             pl["attn"], h, pool["k"][i], pool["v"][i], pages, pos,
             page_size=page_size, window=layer_window(cfg, is_global),
             valid_len=valid_len, scratch=scratch, targets=targets, **akw)
-        x = _mlp(cfg, pl, x + o)
+        x, _ = _mlp(cfg, pl, x + o)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..models import decode_step, prefill
+from ..models.model import _PORTED
 from ..models.transformer import _dtype, global_flags
 
 __all__ = ["make_prefill", "make_decode_step", "cache_zeros",
@@ -41,8 +42,9 @@ def make_decode_step(cfg):
 
 def cache_zeros(cfg, batch: int, cache_len: int, device="cuda") -> dict:
     """The all-zero decode cache of ``batch`` rows of ``cache_len``
-    positions: the tree a prefill of the dense family returns (the leaves
-    and shapes of the reference's ``cache_abstract``), with ``len`` 0.
+    positions: the tree a prefill of the dense, moe or vlm family returns
+    (the leaves and shapes of the reference's ``cache_abstract``), with
+    ``len`` 0.
 
     >>> from repro_torch.configs import get_config
     >>> c = cache_zeros(get_config("gemma3-1b").smoke(), 2, 128, "cpu")
@@ -50,10 +52,10 @@ def cache_zeros(cfg, batch: int, cache_len: int, device="cuda") -> dict:
     (10, 2, 64, 1, 32)
     """
     cfg.validate()
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"the {cfg.family!r} family of {cfg.name} is not ported yet "
-            f"(ROADMAP.md, queue 1); the port runs dense")
+            f"(ROADMAP.md, queue 1); the port runs {', '.join(_PORTED)}")
     L, g, hd = cfg.n_layers, cfg.n_kv, cfg.head_dim
     dt = _dtype(cfg)
 

@@ -834,7 +834,7 @@ def test_serve_cli_mixed_families_in_process(capsys):
     (["--warm-restart", "d"], "warm restart"),
     (["--profile-steps", "2"], "profiler window"),
     (["--arch", "mamba2-370m"], "other families"),
-    (["--arch", "qwen2-moe-a2.7b"], "other families"),
+    (["--arch", "whisper-tiny"], "other families"),
 ])
 def test_serve_cli_refuses_unported_flags(argv, what, capsys):
     with pytest.raises(SystemExit) as e:

@@ -2,9 +2,11 @@
 """Where a full-width serve decode step's time goes on one NVIDIA Hopper
 card.
 
-    python3 tools/serve_profile.py [--trace-dir DIR] [--page-size N]
+    python3 tools/serve_profile.py [--arch NAME] [--trace-dir DIR]
+                                   [--page-size N]
 
-Builds ``chip_smoke.py``'s serve engine shape (gemma3-1b at full width,
+Builds ``chip_smoke.py``'s serve engine shape (``--arch``, gemma3-1b by
+default, at full width and depth, random weights from seed 0;
 ``ContinuousBatcher`` with 8 slots of 2048 positions, chunked prefill of
 256), fills every slot with a 1024-token prompt drawn from a seed (no
 request retires during the run), and measures the batched decode step two
@@ -14,7 +16,9 @@ ways:
   cast to bf16 where a layer uses it, every step;
 * ``bf16_params`` — the same step on a copy of the parameters cast to bf16
   once.  A cast is exact and deterministic, so the step computes the same
-  bits; the tool checks that the sampled tokens are equal;
+  bits; the tool checks that the sampled tokens are equal.  Left out, with
+  a line saying so, when the copy does not fit in the card's free memory
+  (qwen2-moe-a2.7b: 56 GB of f32 parameters and a 28 GB copy);
 * ``paged`` (with ``--page-size N``) — the same prompts on a second engine
   over the paged pool, pages of N tokens: the step reads and writes the
   pool through its page table, scattering the new K/V and gathering each
@@ -101,6 +105,8 @@ def main(argv=None) -> int:
     from train_profile import summarize
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma3-1b",
+                    help="the model, at full width and depth")
     ap.add_argument("--trace-dir", default=TRACE_DIR)
     ap.add_argument("--page-size", type=int, default=None,
                     help="also profile the paged decode step, pages of "
@@ -112,6 +118,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
+    from repro_torch.dist._tree import flatten_named
     from repro_torch.models import decode_step, init_params
     from repro_torch.serve.batcher import ContinuousBatcher
     from repro_torch.serve.scheduler import Request
@@ -122,7 +129,7 @@ def main(argv=None) -> int:
         text=True).stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     os.makedirs(out_dir, exist_ok=True)
-    cfg = get_config("gemma3-1b")
+    cfg = get_config(args.arch)
     params = init_params(cfg, 0, dev)
 
     def engine(**kw):
@@ -140,7 +147,14 @@ def main(argv=None) -> int:
         return eng, time.perf_counter() - t0
 
     eng, admit_s = engine()
-    variants = {"f32_params": params, "bf16_params": cast_tree(params)}
+    variants = {"f32_params": params}
+    bf16_bytes = sum(2 * p.numel() for _, p in flatten_named(params))
+    if bf16_bytes < torch.cuda.mem_get_info(dev)[0]:
+        variants["bf16_params"] = cast_tree(params)
+    else:
+        print(json.dumps({"bf16_params": "left out", "bytes": bf16_bytes,
+                          "free": torch.cuda.mem_get_info(dev)[0]}),
+              flush=True)
     # the decode step as the engine makes it, on a copy of its state, so
     # the variants step from the same cache, tokens and positions
     toks, poss = eng.sched.step_rows()
@@ -202,7 +216,7 @@ def main(argv=None) -> int:
         out["index_kernels"] = index_kernels(path, "decode_step")
         if label == "paged":
             out["page_size"] = args.page_size
-        out.update({"slots": SLOTS, "cache_len": CACHE_LEN,
+        out.update({"arch": cfg.name, "slots": SLOTS, "cache_len": CACHE_LEN,
                     "prompt": PROMPT, "admit_s": admit[label],
                     "step_host_ms_median": 1e3 * host,
                     "step_enqueue_ms_median":
