@@ -147,6 +147,17 @@ prints one JSON object per line:
                reported, one encode and one decode launch a codec step,
                step 1's encode and decode bit for bit against the plain
                versions, the codec's loss drift under 0.05 a step;
+5d. families — slice 8: mamba2-370m, zamba2-1.2b and whisper-tiny at full
+               width and depth through the training CLI (batch 2 x seq
+               1024, 8 SSD chunks of 128; whisper seq 448), 3 fp32 and 3
+               ``--rns-allreduce`` steps (zamba2 and whisper 2 and 2) from
+               one seed: finite losses, one encode and one decode launch a
+               codec step, step 1's encode and decode bit for bit against
+               the plain versions, the codec's drift under 0.05 a step;
+               then the README's ``--rns-correct --inject-corrupt-step 2``
+               on mamba2 (3 steps): one value repaired, nothing
+               unrepairable, the parameters bit-equal to the run without
+               the fault.  Step ms, tokens/s and peak memory of each run;
 6d. moe serve — qwen2-moe-a2.7b at full width and depth (14,004,422,656
                f32 parameters) through the serve CLI on 6b's engine shape
                and workload: every request served and fingerprint
@@ -170,6 +181,17 @@ prints one JSON object per line:
                embeddings, 16 new tokens): each request's logits against a
                teacher-forced forward with the same patches, within
                SERVE_LOGIT_TOL;
+6f. families — mamba2-370m and zamba2-1.2b at full width and depth through
+               the serve CLI, which falls back to single-shot serving, on
+               a trace it writes to chiprun_out/ssm_trace.jsonl (prompts
+               of 128, 256, 512 and 1,024 tokens, whole SSD chunks, 32 new
+               tokens each), and whisper-tiny on 4 Poisson(64) prompts with
+               frames drawn per request: every request served, its logits
+               against a teacher-forced forward (padded at the end to a
+               multiple of 128) within SERVE_LOGIT_TOL in bf16 compute, or,
+               where a request breaks it there, in f32 compute with the
+               bf16 distances reported; tokens/s, decode step ms (CUDA
+               events) and peak memory;
 7. timing    — CUDA-event medians of each kernel and its plain version at
                the main-path shapes: ``ms`` is one launch between two
                events, the wrapper's host work before the launch included;
@@ -195,7 +217,8 @@ prints one JSON object per line:
 8. kernels   — one line listing every ported kernel, its launches summed
                over the main paths (slice 1, the codec steps, the
                full-width training runs, the crypto lane, the serve runs,
-               the paged runs, the moe training and serve runs) and one
+               the paged runs, the moe training and serve runs, the ssm,
+               hybrid and encdec training runs) and one
                timing
                row: mrc and modmul at the
                paper's width, compare on the one column where 17,588 of its
@@ -398,6 +421,31 @@ VLM_ARGS = ("--arch", VLM_ARCH, "--no-smoke", "--requests", "4",
             "--prompt-mean", "256", "--max-new", "16", "--seed", "0",
             "--device", DEVICE)
 VLM_LAYERS = 12
+# Slice 8, the ssm, hybrid and encdec families (phases 5d and 6f), each at
+# full width and depth: mamba2-370m (48 layers, d 1024, 32 SSD heads, state
+# 128, chunk 128; 368,363,008 parameters), zamba2-1.2b (38 Mamba2 layers,
+# d 2048, state 64, one shared attention+MLP block after every 6;
+# 1,104,937,856) and whisper-tiny (4 + 4 layers, d 384, 1,536 stub frames;
+# 41,197,824).  Trained at batch 2 x seq 1024 (8 SSD chunks), whisper at
+# Whisper's decoder context of 448; served single-shot, mamba2 and zamba2
+# on a trace of prompts of whole chunks (the reference's prefill takes no
+# other length), whisper on Poisson(64) prompts with frames per request.
+SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH = ("mamba2-370m", "zamba2-1.2b",
+                                      "whisper-tiny")
+FAMILY_TRAIN_ARGS = {
+    SSM_ARCH: ("--arch", SSM_ARCH, "--no-smoke", "--batch", "2", "--seq",
+               "1024", "--steps", "3"),
+    HYBRID_ARCH: ("--arch", HYBRID_ARCH, "--no-smoke", "--batch", "2",
+                  "--seq", "1024", "--steps", "2"),
+    ENCDEC_ARCH: ("--arch", ENCDEC_ARCH, "--no-smoke", "--batch", "2",
+                  "--seq", "448", "--steps", "2"),
+}
+SSM_PROMPTS = (128, 256, 512, 1024)   # the trace's prompt lengths
+SSM_MAX_NEW = 32
+SSM_CHUNK = 128                       # teacher-forced inputs pad to it
+ENCDEC_SERVE_ARGS = ("--arch", ENCDEC_ARCH, "--no-smoke", "--requests", "4",
+                     "--prompt-mean", "64", "--max-new", str(SSM_MAX_NEW),
+                     "--seed", "0", "--device", DEVICE)
 ORACLE_CHUNK = 16                  # pow() calls per process-pool task
 # Card cycles to sleep before a queued timing: longer than the host takes to
 # enqueue ten launches of any kernel timed (about 2 ms at 1.98 GHz).
@@ -1176,17 +1224,24 @@ def train_reckoning(elements: int, channels: int) -> dict:
 
 
 @contextlib.contextmanager
-def cut_depth(module, layers):
-    """``module.get_config`` (a launcher's) returning its configs cut to
-    ``layers`` layers, for the length of the block (None: unchanged)."""
+def replaced_config(module, **fields):
+    """``module.get_config`` (a launcher's) returning its configs with
+    ``fields`` replaced, for the length of the block (none: unchanged)."""
     orig = module.get_config
-    if layers is not None:
-        module.get_config = lambda name: dataclasses.replace(
-            orig(name), n_layers=layers)
+    if fields:
+        module.get_config = lambda name: dataclasses.replace(orig(name),
+                                                             **fields)
     try:
         yield
     finally:
         module.get_config = orig
+
+
+def cut_depth(module, layers):
+    """``replaced_config`` cutting the configs to ``layers`` layers (None:
+    unchanged)."""
+    return replaced_config(module, **({} if layers is None
+                                      else {"n_layers": layers}))
 
 
 def train_run(dev, max_err, label, flags=(), check=None, args=TRAIN_ARGS,
@@ -1816,11 +1871,13 @@ def serve_run(argv, keep_rows=(), keep_logits=()):
             "peak_memory_of_run": torch.cuda.max_memory_allocated() - at_start}
 
 
-def teacher_forced(cfg, params, r, got, dev, patches=None,
-                   held=True) -> dict:
+def teacher_forced(cfg, params, r, got, dev, stubs=None, held=True,
+                   pad_to=1) -> dict:
     """Request ``r``'s engine logits ``got`` (the last prompt position, then
     each decode step) against a teacher-forced ``train_logits`` over
-    prompt + out[:-1] (behind ``patches`` for a vlm): within
+    prompt + out[:-1] (with ``stubs``, the request's vlm patches or encdec
+    frames; padded at the end to a multiple of ``pad_to`` tokens, which
+    causality keeps out of every compared position): within
     SERVE_LOGIT_TOL of the forward's largest |logit|, and every token
     whose top-2 margin there exceeds the difference equal to the forward's
     argmax.  With ``held`` false both are measured, not required."""
@@ -1830,12 +1887,12 @@ def teacher_forced(cfg, params, r, got, dev, patches=None,
 
     plen = len(r.prompt)
     with torch.inference_mode():
-        toks = torch.tensor([r.prompt + r.out[:-1]], device=dev)
-        batch = {"tokens": toks}
-        if patches is not None:
-            batch["patches"] = patches
+        seq = r.prompt + r.out[:-1]
+        pad = -len(seq) % pad_to
+        batch = {"tokens": torch.tensor([seq + [0] * pad], device=dev)}
+        batch.update(stubs or {})
         fwd, _ = train_logits(cfg, params, batch)
-        fwd = fwd[0, plen - 1:].float()
+        fwd = fwd[0, plen - 1:plen - 1 + len(r.out)].float()
         got = got.float()
         require(got.shape == fwd.shape,
                 f"serve: rid {r.rid} logits {tuple(got.shape)}")
@@ -1854,7 +1911,8 @@ def teacher_forced(cfg, params, r, got, dev, patches=None,
             f"serve: rid {r.rid}: {len(decided) - agree} decided tokens "
             "differ from the forward's argmax")
     return {"rid": r.rid, "plen": plen, "positions": len(r.out),
-            "max_abs_diff": diff, "max_abs_logit": scale,
+            "padded_to": len(seq) + pad, "max_abs_diff": diff,
+            "max_abs_logit": scale,
             "tolerance": SERVE_LOGIT_TOL * scale,
             "positions_past_tolerance": past,
             "decided_tokens": len(decided),
@@ -2496,18 +2554,17 @@ def moe_serve_path(dev, max_err) -> dict:
             at_start, "seconds": time.perf_counter() - t_start}
 
 
-def vlm_single_shot_path(dev) -> dict:
-    """Phase 6e: internvl2-26b at full width cut to VLM_LAYERS layers
-    through the serve CLI (VLM_ARGS), which gates the vlm family out of the
-    engine and falls back to single-shot serving; each request's logits
-    (the last prompt position, then each decode step) against a
-    teacher-forced forward with the same patches."""
+def single_shot_run(argv, layers=None, **fields):
+    """One serve CLI run on an arch the engine gates out, so single-shot
+    (``serve_run``; the configs cut to ``layers`` layers and ``fields``
+    replaced when given).  Each request's config, parameters, prompt, stub
+    inputs (patches, frames) and logit rows (the prefill's, then each
+    decode step's) are recorded, and each decode step is timed by CUDA
+    events.  Returns (the run, the requests' records)."""
     import torch
 
     from repro_torch.launch import serve as launch_serve
 
-    t_start = time.perf_counter()
-    free_card()
     seen = []
     orig = {"prefill": launch_serve.prefill,
             "decode_step": launch_serve.decode_step}
@@ -2516,37 +2573,78 @@ def vlm_single_shot_path(dev) -> dict:
         logits, cache = orig["prefill"](cfg, params, batch, cache_len)
         seen.append({"cfg": cfg, "params": params,
                      "prompt": batch["tokens"][0].tolist(),
-                     "patches": batch["patches"], "logits": [logits[0]]})
+                     "stubs": {k: v for k, v in batch.items()
+                               if k != "tokens"},
+                     "logits": [logits[0]], "events": []})
         return logits, cache
 
     def decode_step(cfg, params, cache, tokens, pos):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         logits, cache = orig["decode_step"](cfg, params, cache, tokens, pos)
+        e1.record()
         seen[-1]["logits"].append(logits[0])
+        seen[-1]["events"].append((e0, e1))
         return logits, cache
 
     launch_serve.prefill, launch_serve.decode_step = prefill, decode_step
     try:
-        with cut_depth(launch_serve, VLM_LAYERS):
-            run = serve_run(VLM_ARGS)
+        with replaced_config(launch_serve, **fields), \
+                cut_depth(launch_serve, layers):
+            run = serve_run(argv)
     finally:
         launch_serve.prefill = orig["prefill"]
         launch_serve.decode_step = orig["decode_step"]
+    torch.cuda.synchronize()
+    for rec in seen:
+        rec["decode_ms"] = [a.elapsed_time(b) for a, b in rec["events"]]
+    return run, seen
+
+
+def check_single_shot(run, seen, n_req, max_new, what) -> None:
+    """The report of a single-shot run: one slot, every request served
+    with all its ``max_new`` tokens (no EOS in these workloads)."""
     rep = run["report"]
-    n_req = int(VLM_ARGS[VLM_ARGS.index("--requests") + 1])
-    max_new = int(VLM_ARGS[VLM_ARGS.index("--max-new") + 1])
     require(rep["engine"] == "single-shot" and run["engine"] is None
             and rep["n_slots"] == 1 and rep["requests"] == n_req
-            and rep["tokens_out"] == n_req * max_new and len(seen) == n_req,
-            f"vlm: report {rep}")
-    cfg, params = seen[0]["cfg"], seen[0]["params"]
+            and rep["tokens_out"] == n_req * max_new and len(seen) == n_req
+            and all(len(s["logits"]) == max_new for s in seen),
+            f"{what}: report {rep}")
+
+
+def held_to_forward(seen, dev, held=True, pad_to=1) -> list:
+    """Each recorded request's logits against its teacher-forced forward
+    (``teacher_forced``); the tokens the CLI chose are each row's
+    argmax."""
+    import torch
+
     checked = []
     for i, s in enumerate(seen):
-        # the CLI's tokens are the argmax of each logit row it was given
         logits = torch.stack(s["logits"])
         r = types.SimpleNamespace(rid=i, prompt=s["prompt"],
                                   out=logits.argmax(dim=-1).tolist())
-        checked.append(teacher_forced(cfg, params, r, logits, dev,
-                                      patches=s["patches"]))
+        checked.append(teacher_forced(s["cfg"], s["params"], r, logits, dev,
+                                      stubs=s["stubs"], held=held,
+                                      pad_to=pad_to))
+    return checked
+
+
+def vlm_single_shot_path(dev) -> dict:
+    """Phase 6e: internvl2-26b at full width cut to VLM_LAYERS layers
+    through the serve CLI (VLM_ARGS), which gates the vlm family out of the
+    engine and falls back to single-shot serving; each request's logits
+    (the last prompt position, then each decode step) against a
+    teacher-forced forward with the same patches."""
+    t_start = time.perf_counter()
+    free_card()
+    run, seen = single_shot_run(VLM_ARGS, VLM_LAYERS)
+    rep = run["report"]
+    check_single_shot(run, seen, int(VLM_ARGS[VLM_ARGS.index("--requests")
+                                              + 1]),
+                      int(VLM_ARGS[VLM_ARGS.index("--max-new") + 1]), "vlm")
+    cfg, params = seen[0]["cfg"], seen[0]["params"]
+    checked = held_to_forward(seen, dev)
     return {"args": list(VLM_ARGS), "layers": cfg.n_layers,
             "parameters": sum(p.numel() for _, p in _named(params)),
             "seconds": run["seconds"], "wall_s": rep["wall_s"],
@@ -2554,6 +2652,149 @@ def vlm_single_shot_path(dev) -> dict:
             "patches": cfg.n_patches, "teacher_forced": checked,
             "max_memory_allocated": run["max_memory_allocated"],
             "phase_seconds": time.perf_counter() - t_start}
+
+
+# ------------------------------ slice 8: the ssm, hybrid and encdec families
+def family_train_path(dev, max_err) -> dict:
+    """Phase 5d: mamba2-370m, zamba2-1.2b and whisper-tiny at full width and
+    depth through the training CLI (FAMILY_TRAIN_ARGS), each the fp32 run
+    and the ``--rns-allreduce`` run from one seed: finite losses, one
+    encode and one decode launch a codec step, step TRAIN_CHECK_STEP's
+    encode and decode against their plain versions bit for bit, the codec's
+    loss drift against fp32 under TRAIN_MAX_DRIFT a step.  Then the
+    README's ``--rns-correct --inject-corrupt-step 2`` on mamba2: one value
+    repaired, nothing unrepairable, the parameters after the last step
+    those of the run without the fault bit for bit."""
+    t0 = time.perf_counter()
+    runs, launches, out = {}, Counter(), {}
+
+    def run(arch, label, flags=(), check=None, keep=False):
+        r = train_run(dev, max_err, f"{arch}/{label}", flags, check,
+                      args=FAMILY_TRAIN_ARGS[arch], phase="family_train")
+        s = r["summary"]
+        launches.update(r["launches"])
+        emit({"phase": "family_train", "arch": arch, "run": label,
+              "seconds": r["seconds"], "elements": r["elements"],
+              "losses": s["losses"], "step_ms": s["step_ms"],
+              "tokens_per_s": s["tokens_per_s"],
+              "step_ms_median": statistics.median(s["step_ms"]),
+              "tokens_per_s_median": statistics.median(s["tokens_per_s"]),
+              "max_memory_allocated": s["max_memory_allocated"],
+              "reckoned_bytes": r["reckoned_bytes"],
+              "launches": r["launches"], "checked": r["checked"]})
+        runs[arch, label] = s
+        return r["params"] if keep else None
+
+    for arch in FAMILY_TRAIN_ARGS:
+        run(arch, "fp32")
+        run(arch, "rns", ("--rns-allreduce",), TRAIN_CHECK_STEP)
+        drift = max(abs(a - b) for a, b in zip(runs[arch, "rns"]["losses"],
+                                               runs[arch, "fp32"]["losses"]))
+        require(drift < TRAIN_MAX_DRIFT, f"{arch} train: drift {drift}")
+        out[arch] = {"drift": drift,
+                     **{f"{k}_step_ms_median": statistics.median(
+                         runs[arch, k]["step_ms"]) for k in ("fp32", "rns")},
+                     **{f"{k}_tokens_per_s_median": statistics.median(
+                         runs[arch, k]["tokens_per_s"])
+                        for k in ("fp32", "rns")},
+                     "max_memory_allocated": max(
+                         runs[arch, k]["max_memory_allocated"]
+                         for k in ("fp32", "rns"))}
+    hit = run(SSM_ARCH, "rns_correct_injected",
+              ("--rns-correct", "--inject-corrupt-step",
+               str(TRAIN_INJECT_STEP)), keep=True)
+    clean = run(SSM_ARCH, "rns_correct", ("--rns-correct",), keep=True)
+    steps = len(runs[SSM_ARCH, "rns_correct"]["losses"])
+    require(runs[SSM_ARCH, "rns_correct_injected"]["repaired"]
+            == [int(i == TRAIN_INJECT_STEP) for i in range(steps)]
+            and runs[SSM_ARCH, "rns_correct"]["repaired"] == [0] * steps,
+            f"{SSM_ARCH} train: repaired counts")
+    require(runs[SSM_ARCH, "rns_correct_injected"]["unrepairable"]
+            == runs[SSM_ARCH, "rns_correct"]["unrepairable"] == [0] * steps,
+            f"{SSM_ARCH} train: unrepairable counts")
+    for (name, a), (_, b) in zip(_named(hit), _named(clean)):
+        require(bits_equal(a, b), f"{SSM_ARCH} train: {name} after the "
+                "repaired run differs from the run without the fault")
+    del hit, clean
+    out[SSM_ARCH]["rns_correct_repaired"] = runs[
+        SSM_ARCH, "rns_correct_injected"]["repaired"]
+    return {"runs": out, "launches": implied(**launches),
+            "seconds": time.perf_counter() - t0}
+
+
+def ssm_trace(path: str, vocab: int) -> None:
+    """Phase 6f's JSONL workload (the serve CLI's ``--trace``): one request
+    per SSM_PROMPTS length, seeded random tokens, SSM_MAX_NEW new tokens and
+    no EOS, arriving a tick apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        for i, n in enumerate(SSM_PROMPTS):
+            f.write(json.dumps({
+                "rid": i, "prompt": rng.integers(1, vocab, n).tolist(),
+                "max_new": SSM_MAX_NEW, "eos": None,
+                "arrival": float(i)}) + "\n")
+
+
+def family_single_shot_path(dev) -> dict:
+    """Phase 6f: mamba2-370m and zamba2-1.2b at full width and depth
+    through the serve CLI on the trace ``ssm_trace`` writes to
+    chiprun_out/ssm_trace.jsonl, and whisper-tiny on ENCDEC_SERVE_ARGS
+    (frames drawn per request); the CLI gates each family out of the engine
+    and serves single-shot.  Every request served; each request's logits
+    (the last prompt position, then each decode step) against a
+    teacher-forced forward over its prompt and tokens (and frames), padded
+    at the end to a multiple of SSM_CHUNK.  The bound is held in the
+    configs' bf16 compute; where a request breaks it there, the same run in
+    f32 compute is held to it instead and the bf16 distances are
+    reported."""
+    import statistics as st
+
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    path = os.path.join(ROOT, "chiprun_out", "ssm_trace.jsonl")
+    out = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH):
+        free_card()
+        if arch == ENCDEC_ARCH:
+            argv, n_req = ENCDEC_SERVE_ARGS, 4
+        else:
+            ssm_trace(path, get_config(arch).vocab)
+            argv = ("--arch", arch, "--no-smoke", "--trace", path,
+                    "--cache-len", str(max(SSM_PROMPTS) + SSM_MAX_NEW),
+                    "--seed", "0", "--device", DEVICE)
+            n_req = len(SSM_PROMPTS)
+        rows = {}
+        for dtype in ("bfloat16", "float32"):
+            fields = {} if dtype == "bfloat16" else {"dtype": "float32"}
+            run, seen = single_shot_run(argv, **fields)
+            check_single_shot(run, seen, n_req, SSM_MAX_NEW,
+                              f"{arch} single-shot")
+            checked = held_to_forward(seen, dev, held=dtype == "float32",
+                                      pad_to=SSM_CHUNK)
+            rep = run["report"]
+            decode_ms = [t for s in seen for t in s["decode_ms"]]
+            rows[dtype] = {
+                "seconds": run["seconds"], "wall_s": rep["wall_s"],
+                "tok_per_s": rep["tok_per_s"], "steps": rep["steps"],
+                "prompt_lens": [len(s["prompt"]) for s in seen],
+                "decode_ms_median": st.median(decode_ms),
+                "decode_ms_max": max(decode_ms),
+                "max_memory_allocated": run["max_memory_allocated"],
+                "peak_memory_of_run": run["peak_memory_of_run"],
+                "teacher_forced": checked}
+            within = all(c["max_abs_diff"] <= c["tolerance"]
+                         and c["decided_tokens_equal"] == c["decided_tokens"]
+                         for c in checked)
+            del run, seen
+            if within:
+                break
+        out[arch] = {"args": list(argv), "held_on": dtype, **rows}
+        emit({"phase": "family_serve", "arch": arch, **out[arch]})
+    return {"runs": out, "seconds": time.perf_counter() - t_start}
 
 
 def main() -> int:
@@ -2867,16 +3108,19 @@ def main() -> int:
           f"{off['latency_s']['p50']:.3f} s; loadgen max QPS "
           f"{paged['loadgen']['max_qps']}", flush=True)
 
-    # ------------- 5c, 6d, 6e: slice 7's main paths, the moe and vlm families
+    # --- 5c, 5d, 6d, 6e, 6f: slices 7 and 8, the moe, vlm, ssm, hybrid and
+    # encdec families
     # a rounded router flips experts near ties: nothing may turn TF32 on
     require(not torch.backends.cuda.matmul.allow_tf32
             and torch.get_float32_matmul_precision() == "highest",
             "TF32 is on for f32 matmuls")
     del paged, serve
     moe_train = moe_train_path(dev, max_err)
+    family_train = family_train_path(dev, max_err)
     moe = moe_serve_path(dev, max_err)
     vlm = vlm_single_shot_path(dev)
-    for run in (moe_train, moe):
+    family_serve = family_single_shot_path(dev)
+    for run in (moe_train, family_train, moe):
         for k in launches:
             launches[k] += run["launches"][k]
     emit({"phase": "moe_train", "step": "total", **moe_train, "card": card})
@@ -2886,6 +3130,10 @@ def main() -> int:
           "memory_allocated_at_start": moe["memory_allocated_at_start"],
           "launches": moe["launches"], "card": card})
     emit({"phase": "vlm", "step": "single_shot", **vlm, "card": card})
+    emit({"phase": "family_train", "step": "total", **family_train,
+          "card": card})
+    emit({"phase": "family_serve", "step": "total",
+          "seconds": family_serve["seconds"], "card": card})
     mm, nd = moe["main"], moe["no_drop"]["teacher_forced"]
     print(f"moe: {MOE_ARCH} full width and depth, {card}: wall "
           f"{mm['wall_s']} s, {mm['tok_per_s']} tokens/s, decode step "
@@ -2901,6 +3149,19 @@ def main() -> int:
           f"{moe_train['drift']:.5f}; phases 5c {moe_train['seconds']:.1f} "
           f"s, 6d {moe['seconds']:.1f} s, 6e {vlm['phase_seconds']:.1f} s",
           flush=True)
+    ft, fs = family_train["runs"], family_serve["runs"]
+    print(f"ssm/hybrid/encdec: full width and depth, {card}: train "
+          + "; ".join(f"{a} fp32 {r['fp32_step_ms_median']:.1f} ms "
+                      f"({r['fp32_tokens_per_s_median']:.0f} tokens/s), "
+                      f"codec {r['rns_step_ms_median']:.1f} ms, drift "
+                      f"{r['drift']:.5f}, peak {r['max_memory_allocated']} "
+                      f"bytes" for a, r in ft.items())
+          + "; single-shot "
+          + "; ".join(f"{a} {r[r['held_on']]['tok_per_s']} tokens/s, decode "
+                      f"step {r[r['held_on']]['decode_ms_median']:.2f} ms, "
+                      f"held on {r['held_on']}" for a, r in fs.items())
+          + f"; phases 5d {family_train['seconds']:.1f} s, 6f "
+          f"{family_serve['seconds']:.1f} s", flush=True)
 
     # -------------------------------------------------------- 7. timing
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

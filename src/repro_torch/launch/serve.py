@@ -65,16 +65,22 @@ counters.
 ``main`` returns ``(report, engine)`` in ``sim`` and ``(report, harness)``
 (the ``OfflineInference``) in the other modes.
 
-The engine serves the dense and moe families.  A vlm arch, which the
-engine gates out, falls back in ``sim`` to ``simulate_single_shot``: one
-request at a time, a prefill of the patches and the prompt, then
-scalar-position decode steps (``"engine": "single-shot"`` in the report,
-engine None); ``--rns-verify`` and the crypto lane need the engine and
-raise there.
+The engine serves the dense and moe families.  The archs of the other
+families (vlm, ssm, hybrid, encdec), which the engine gates out, fall
+back in ``sim`` to ``simulate_single_shot``: one request at a time, a
+prefill of the prompt (behind the vlm patches; beside the encdec frames),
+then scalar-position decode steps (``"engine": "single-shot"`` in the
+report, engine None); ``--rns-verify`` and the crypto lane need the
+engine and raise there.
+
+    # whisper-tiny at full width on the card, one request at a time; the
+    # ssm families (mamba2, zamba2) take prompts of whole 128-token chunks
+    # only, as the reference's prefill does: give them a --trace
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --no-smoke --requests 4 --prompt-mean 64 --max-new 32
 
 Not ported yet, each refused with the ROADMAP item it waits for:
-``--warm-restart``, the profiler window (``--profile-*``), and the
-other families (ssm, hybrid, encdec).
+``--warm-restart`` and the profiler window (``--profile-*``).
 """
 from __future__ import annotations
 
@@ -89,7 +95,6 @@ import torch
 
 from ..configs import get_config
 from ..models import decode_step, init_params, prefill
-from ..models.model import _PORTED
 from ..serve.batcher import ContinuousBatcher
 from ..serve.crypto import CryptoContext, CryptoRequest
 from ..serve.offline import OfflineInference, pow2_buckets, sample_stats
@@ -266,12 +271,12 @@ def simulate(engine: ContinuousBatcher, reqs: list) -> dict:
 
 def simulate_single_shot(cfg, params, reqs: list, rng, device) -> tuple:
     """Sequential one-request-at-a-time serving for the families the
-    continuous batcher gates out (the port's: vlm): a prefill of the whole
-    prompt (behind the vlm patches, drawn from ``rng`` per request as the
-    reference draws them) into a cache of prompt + patches + max_new
-    positions, then scalar-position decode steps.  The tick clock counts
-    one tick per generated token.  Returns (completed requests, counters)
-    like ``simulate``."""
+    continuous batcher gates out (vlm, ssm, hybrid, encdec): a prefill of
+    the whole prompt (behind the vlm patches; with the encdec frames; each
+    drawn from ``rng`` per request, in the reference's order) into a cache
+    of prompt + patches + max_new positions, then scalar-position decode
+    steps.  The tick clock counts one tick per generated token.  Returns
+    (completed requests, counters) like ``simulate``."""
     n_patches = cfg.n_patches if cfg.family == "vlm" else 0
     t, steps = 0.0, 0
     for r in sorted(reqs, key=lambda q: q.arrival):
@@ -283,6 +288,10 @@ def simulate_single_shot(cfg, params, reqs: list, rng, device) -> tuple:
         if cfg.family == "vlm":
             batch["patches"] = torch.from_numpy(rng.standard_normal(
                 (1, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(
+                device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (1, cfg.enc_frames, cfg.d_model)).astype(np.float32)).to(
                 device)
         logits, cache = prefill(cfg, params, batch, cache_len)
         tok = int(torch.argmax(logits[0]))
@@ -566,10 +575,6 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     cfg.validate()
-    if cfg.family not in _PORTED:
-        ap.error(f"{cfg.name} is of the {cfg.family!r} family; the other "
-                 f"families wait for their slices ({_ROADMAP}); the port "
-                 f"serves {', '.join(_PORTED)} archs")
     rng = np.random.default_rng(args.seed)
     crypto_ctx = (CryptoContext(n_limbs=args.crypto_limbs,
                                 exp_bits=args.crypto_exp_bits)

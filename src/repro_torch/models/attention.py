@@ -13,6 +13,11 @@ softmax only bounds the reference's live memory; the full rows give the
 same values up to the order of f32 sums (and, in bf16, where the
 probabilities round).
 
+``attn_forward(enc=)`` and ``attn_decode(enc=)`` are the encdec family's
+cross-attention (``attention.py:325-353``, ``:446-452``): k and v
+projected from the encoder states, rope on q only, no mask; decode
+projects the encoder's K/V anew at every step, as the reference does.
+
 Decode (``decode_attention``, ``decode_attention_ring``, ``attn_decode``)
 attends one or more new tokens against a KV cache: a full-length cache with
 a validity mask, or a ring buffer of W slots for a sliding-window layer, as
@@ -81,13 +86,16 @@ def attention(q, k, v, *, causal: bool = True, window=None):
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _project(p, x, heads, kv, hd):
-    """q, k, v projections of x: (b, s, d), in x's dtype."""
+def _project(p, x, heads, kv, hd, src=None):
+    """q, k, v projections, in x's dtype: q of x (b, s, d), k and v of
+    ``src`` (b, t, d), x itself unless given (cross-attention)."""
     dt = x.dtype
     b, s, d = x.shape
+    src = x if src is None else src
+    t = src.shape[1]
     q = (x @ p["wq"].to(dt).reshape(d, heads * hd)).view(b, s, heads, hd)
-    k = (x @ p["wk"].to(dt).reshape(d, kv * hd)).view(b, s, kv, hd)
-    v = (x @ p["wv"].to(dt).reshape(d, kv * hd)).view(b, s, kv, hd)
+    k = (src @ p["wk"].to(dt).reshape(d, kv * hd)).view(b, t, kv, hd)
+    v = (src @ p["wv"].to(dt).reshape(d, kv * hd)).view(b, t, kv, hd)
     return q, k, v
 
 
@@ -99,14 +107,18 @@ def _out(p, o):
 
 
 def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
-                 window=None, return_kv=False):
-    """Project -> rope -> attend -> project.  x: (b, s, d).  With
-    ``return_kv`` also the rotated keys and the values, (b, s, kv, hd)
-    each: what a prefill writes into the cache."""
-    q, k, v = _project(p, x, heads, kv, hd)
+                 window=None, enc=None, return_kv=False):
+    """Project -> rope -> attend -> project.  x: (b, s, d).  ``enc``
+    (b, F, d) switches to cross-attention against encoder states: k and v
+    are projected from ``enc``, only q is rotated, and nothing is masked.
+    With ``return_kv`` also the keys and the values, (b, s, kv, hd) each:
+    what a prefill writes into the cache."""
+    q, k, v = _project(p, x, heads, kv, hd, src=enc)
     q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
-    out = _out(p, attention(q, k, v, causal=causal, window=window))
+    if enc is None:
+        k = rope(k, positions, theta)
+    out = _out(p, attention(q, k, v, causal=causal and enc is None,
+                            window=window))
     return (out, (k, v)) if return_kv else out
 
 
@@ -227,12 +239,21 @@ def attn_decode(p, x, cache, pos, *, heads, kv, hd, theta, ring=False,
     causal attention inside the chunk.  A ring cache takes an int position
     and one token, written at slot pos mod W.  The new K/V are written
     into ``cache``'s tensors in place; returns (out, the cache dict).
+
+    ``enc`` (b, F, d) is cross-attention: one token at one int position
+    attends to all F encoder states, whose K/V are projected anew at every
+    step, as the reference does; ``cache`` is returned as it came (None
+    in the encdec stack).
     """
-    if enc is not None:
-        raise NotImplementedError(
-            "cross-attention decode belongs to the encdec family, which is "
-            "not ported yet (ROADMAP.md, queue 1)")
     b, s, _ = x.shape
+    if enc is not None:
+        if s != 1 or isinstance(pos, torch.Tensor) or np.ndim(pos) != 0:
+            raise ValueError("cross-attention decode is one token at one "
+                             "host position")
+        q, k, v = _project(p, x, heads, kv, hd, src=enc)
+        q = rope(q, (int(pos) + torch.arange(1, device=x.device)).expand(
+            b, 1), theta)
+        return _out(p, decode_attention(q, k, v, k.shape[1])), cache
     kc, vc = cache["k"], cache["v"]
     S = kc.shape[1]
     if ring:

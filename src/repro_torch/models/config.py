@@ -4,8 +4,7 @@ registry (``repro_torch.configs``).
 Families: dense (GQA/MQA transformer, optional sliding window), moe,
 ssm (Mamba2/SSD), hybrid (Mamba2 + shared attention), encdec (whisper
 backbone, stub audio frontend), vlm (LM backbone + stub patch embeddings).
-The port runs the dense, moe and vlm families; the others raise in
-``models.model``.
+The port runs all six (``models.model``).
 
 Every field of the reference's dataclass is kept, so the registry's configs
 and their ``smoke()`` reductions are the same values in both packages.  The

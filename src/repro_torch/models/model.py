@@ -14,11 +14,12 @@ per-row ``(b,)`` positions, and ``extend_step`` appends a whole token chunk
 to a cache: together they carry the continuous-batching serve engine, on a
 batched cache or, with ``pages=``/``page_size=``, on a paged pool.  The
 three serving functions run under ``torch.inference_mode()`` and write the
-new K/V into the cache's tensors in place.  The port runs the dense, moe
-and vlm families; ``extend_step`` and a paged ``decode_step`` take the
-text-only ones (dense, moe), as the reference's do.  The others (ssm,
-hybrid, encdec) raise ``NotImplementedError`` until their slices land
-(ROADMAP.md, queue 1).
+new K/V (and the ssm families' states) into the cache's tensors in place.
+All six families run: dense, moe and vlm (``transformer``), encdec
+(``transformer``'s encoder-decoder half), ssm and hybrid
+(``ssm_models``).  ``extend_step`` and a paged ``decode_step`` take the
+text-only linear-KV ones (dense, moe), as the reference's do; an unknown
+family raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,36 +27,40 @@ import numpy as np
 import torch
 
 from ..dist import _tree
-from . import transformer
+from . import ssm_models, transformer
 from .config import ModelConfig
 
 __all__ = ["init_params", "abstract_params", "train_logits", "prefill",
            "decode_step", "extend_step", "params_from_reference"]
 
-_PORTED = ("dense", "moe", "vlm")
+_DENSE = ("dense", "moe", "vlm")
 _TEXT_ONLY = ("dense", "moe")   # the families extend and paging take
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    cfg.validate()
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family of {cfg.name} is not ported yet "
-            f"(ROADMAP.md, queue 1); the port runs {', '.join(_PORTED)}"
-        )
+def _pick(cfg: ModelConfig, dense, encdec, ssm, hybrid):
+    """The function of ``cfg``'s family."""
+    if cfg.family in _DENSE:
+        return dense
+    fn = {"encdec": encdec, "ssm": ssm, "hybrid": hybrid}.get(cfg.family)
+    if fn is None:
+        raise ValueError(cfg.family)
+    return fn
 
 
 def init_params(cfg: ModelConfig, generator=0, device="cuda"):
     """Random parameters: N(0, 0.02) weights in f32, cast to
-    ``cfg.param_dtype``, and zero norm scales.  ``generator`` is a
-    ``torch.Generator`` on ``device`` (a CPU one for "meta") or an int
-    seed for a new one."""
-    _check_family(cfg)
+    ``cfg.param_dtype``, and zero norm scales (the Mamba2 blocks' decay,
+    step and conv leaves as ``ssm.init_mamba2`` draws them).
+    ``generator`` is a ``torch.Generator`` on ``device`` (a CPU one for
+    "meta") or an int seed for a new one."""
+    cfg.validate()
     device = torch.device(device)
     if not isinstance(generator, torch.Generator):
         gen_device = "cpu" if device.type == "meta" else device
         generator = torch.Generator(device=gen_device).manual_seed(generator)
-    return transformer.init_decoder_only(generator, cfg, device)
+    init = _pick(cfg, transformer.init_decoder_only, transformer.init_encdec,
+                 ssm_models.init_ssm_stack, ssm_models.init_ssm_stack)
+    return init(generator, cfg, device)
 
 
 def abstract_params(cfg: ModelConfig):
@@ -65,27 +70,38 @@ def abstract_params(cfg: ModelConfig):
 
 
 def train_logits(cfg: ModelConfig, params, batch):
-    _check_family(cfg)
-    return transformer.decoder_only_logits(cfg, params, batch)
+    fn = _pick(cfg, transformer.decoder_only_logits,
+               transformer.encdec_logits, ssm_models.ssm_logits,
+               ssm_models.hybrid_logits)
+    return fn(cfg, params, batch)
 
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params, batch, cache_len: int):
-    _check_family(cfg)
-    return transformer.decoder_only_prefill(cfg, params, batch, cache_len)
+    fn = _pick(cfg, transformer.decoder_only_prefill,
+               transformer.encdec_prefill, ssm_models.ssm_prefill,
+               ssm_models.hybrid_prefill)
+    return fn(cfg, params, batch, cache_len)
 
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                 pages=None, page_size=None):
-    _check_family(cfg)
+    """One decode step at ``pos`` (one position, or one per row on the
+    linear-KV families); ``pages``/``page_size`` read and write a paged
+    pool (dense, moe)."""
     if pages is not None and cfg.family not in _TEXT_ONLY:
         raise NotImplementedError(
             f"paged decode supports text-only linear-KV transformer "
             f"families (dense/moe), not {cfg.family}"
         )
-    return transformer.decoder_only_decode(cfg, params, cache, tokens, pos,
-                                           pages=pages, page_size=page_size)
+    if cfg.family in _DENSE:
+        return transformer.decoder_only_decode(
+            cfg, params, cache, tokens, pos, pages=pages,
+            page_size=page_size)
+    fn = _pick(cfg, None, transformer.encdec_decode, ssm_models.ssm_decode,
+               ssm_models.hybrid_decode)
+    return fn(cfg, params, cache, tokens, pos)
 
 
 @torch.inference_mode()
@@ -98,7 +114,6 @@ def extend_step(cfg: ModelConfig, params, cache, tokens, pos,
     or just position ``logit_index`` when given — and the cache).  The vlm
     family is refused: its cache reserves positions 0..P-1 for the patches,
     which only a full prefill places."""
-    _check_family(cfg)
     if cfg.family not in _TEXT_ONLY:
         raise NotImplementedError(
             f"extend_step supports text-only linear-KV transformer families "

@@ -1,5 +1,6 @@
-"""Decoder-only transformer stacks (the dense, moe and vlm families): init,
-the training forward, prefill, decode and extend, as the reference's
+"""Decoder-only transformer stacks (the dense, moe and vlm families) and the
+whisper-style encoder-decoder (encdec): init, the training forward,
+prefill, decode and extend, as the reference's
 ``repro/models/transformer.py`` builds them.
 
 Parameters keep the reference's tree, leaf names and shapes: the layers are
@@ -27,6 +28,12 @@ cache is a paged pool (``serve_step.paged_pool_zeros``: ``k``/``v``
 (L, P, page_size, g, hd)) read and written through a page table
 (``_paged_cache_stack``); ``valid_len=``/``scratch=`` are extend's padded
 write barrier.
+
+The encdec half encodes ``batch["frames"]`` (b, F, d), the stub audio
+frontend's embeddings, with non-causal blocks, and its decoder blocks add a
+cross-attention to those states between the self-attention and the MLP;
+its cache holds the decoder's ``k``/``v`` (L, b, S, g, hd), the encoder
+states ``enc`` and ``len``.
 """
 from __future__ import annotations
 
@@ -45,7 +52,8 @@ from .moe import init_moe, moe_forward
 __all__ = ["NO_WINDOW", "global_flags", "layer_window", "init_dense_block",
            "init_decoder_only", "decoder_stack", "decoder_only_logits",
            "decoder_only_prefill", "decoder_only_decode",
-           "decoder_only_extend"]
+           "decoder_only_extend", "init_encdec", "encode", "encdec_logits",
+           "encdec_prefill", "encdec_decode"]
 
 NO_WINDOW = 1 << 40  # "infinite" window of a global layer
 
@@ -133,12 +141,18 @@ def _block_kv(cfg: ModelConfig, pl, x, positions, window):
     return _mlp(cfg, pl, x + o)[0], kv
 
 
-def _layers(params):
-    """The per-layer parameter trees: slice i of every stacked leaf."""
-    leaves, spec = _tree.flatten(params["layers"])
+def _unstack(tree):
+    """The trees of slice i of every stacked leaf of ``tree``, along the
+    leading axis (the layer axis)."""
+    leaves, spec = _tree.flatten(tree)
     per_layer = [leaf.unbind(0) for leaf in leaves]   # one backward stack
     return [_tree.unflatten(spec, [t[i] for t in per_layer])
             for i in range(len(per_layer[0]))]
+
+
+def _layers(params):
+    """The per-layer parameter trees of ``params["layers"]``."""
+    return _unstack(params["layers"])
 
 
 def decoder_stack(cfg: ModelConfig, params, x, positions, *,
@@ -398,3 +412,148 @@ def decoder_only_extend(cfg: ModelConfig, params, cache, tokens, pos,
         x = x[:, logit_index:logit_index + 1]
     logits = unembed(x, params["embed"])
     return logits, dict(cache, len=cache["len"] + tokens.shape[1])
+
+
+# ------------------------------------------------------------------ encdec
+def init_encdec(gen, cfg: ModelConfig, device):
+    """The whisper-style encoder-decoder: an encoder stack over the stub
+    frames and a decoder stack whose blocks add a cross-attention."""
+    dt = _pdtype(cfg)
+    d, E, L = cfg.d_model, (cfg.enc_layers,), (cfg.n_layers,)
+
+    def attn(lead):
+        return init_attn(gen, d, cfg.n_heads, cfg.n_kv, cfg.head_dim, dt,
+                         device, lead)
+
+    return {
+        "embed": init_linear(gen, (cfg.vocab, d), dt, device),
+        "enc_layers": {"ln1": init_norm(E + (d,), dt, device),
+                       "attn": attn(E),
+                       "ln2": init_norm(E + (d,), dt, device),
+                       "mlp": init_mlp(gen, d, cfg.d_ff, dt, device, E)},
+        "enc_norm": init_norm((d,), dt, device),
+        "dec_layers": {"ln1": init_norm(L + (d,), dt, device),
+                       "self_attn": attn(L),
+                       "ln2": init_norm(L + (d,), dt, device),
+                       "cross_attn": attn(L),
+                       "ln3": init_norm(L + (d,), dt, device),
+                       "mlp": init_mlp(gen, d, cfg.d_ff, dt, device, L)},
+        "final_norm": init_norm((d,), dt, device),
+    }
+
+
+def _ffn(cfg: ModelConfig, ln, mlp, x):
+    h = rms_norm(x, ln, cfg.norm_eps)
+    return x + gated_mlp(h, mlp["wi"], mlp["wo"], cfg.act)
+
+
+def _enc_block(cfg: ModelConfig, pl, x, positions):
+    h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+    x = x + attn_forward(pl["attn"], h, positions, causal=False,
+                         **_attn_kwargs(cfg))
+    return _ffn(cfg, pl["ln2"], pl["mlp"], x)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """frames: (b, F, d) stub embeddings -> encoder states (b, F, d) in the
+    compute dtype: non-causal self-attention blocks, then ``enc_norm``."""
+    x = frames.to(_dtype(cfg))
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for pl in _unstack(params["enc_layers"]):
+        if cfg.remat:
+            x = checkpoint(_enc_block, cfg, pl, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _enc_block(cfg, pl, x, positions)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block(cfg: ModelConfig, pl, x, positions, enc, collect_kv=False):
+    """Self-attention (causal), cross-attention to ``enc``, MLP; with
+    ``collect_kv`` also the self-attention's (k, v)."""
+    akw = _attn_kwargs(cfg)
+    h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+    res = attn_forward(pl["self_attn"], h, positions, return_kv=collect_kv,
+                       **akw)
+    o, kv = res if collect_kv else (res, None)
+    x = x + o
+    h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
+    x = x + attn_forward(pl["cross_attn"], h2, positions, enc=enc, **akw)
+    x = _ffn(cfg, pl["ln3"], pl["mlp"], x)
+    return (x, kv) if collect_kv else x
+
+
+def _dec_stack(cfg: ModelConfig, params, x, positions, enc, *,
+               collect_kv=False):
+    """The decoder stack.  Returns (x, kv): kv is None, or with
+    ``collect_kv`` the stacked self-attention (k, v), (L, b, s, g, hd)
+    each."""
+    ks, vs = [], []
+    for pl in _unstack(params["dec_layers"]):
+        if collect_kv:
+            x, (k, v) = _dec_block(cfg, pl, x, positions, enc, True)
+            ks.append(k)
+            vs.append(v)
+        elif cfg.remat:
+            x = checkpoint(_dec_block, cfg, pl, x, positions, enc,
+                           use_reentrant=False)
+        else:
+            x = _dec_block(cfg, pl, x, positions, enc)
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def _dec_inputs(cfg: ModelConfig, params, batch):
+    """(encoder states, embedded tokens, their positions)."""
+    enc = encode(cfg, params, batch["frames"])
+    x = embed(batch["tokens"], params["embed"], _dtype(cfg))
+    b, s, _ = x.shape
+    return enc, x, torch.arange(s, device=x.device).expand(b, s)
+
+
+def encdec_logits(cfg: ModelConfig, params, batch):
+    """Training forward.  batch: "tokens" (b, s) and "frames" (b, F, d).
+    Returns (logits, aux = 0)."""
+    enc, x, positions = _dec_inputs(cfg, params, batch)
+    x, _ = _dec_stack(cfg, params, x, positions, enc)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (unembed(x, params["embed"]),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def encdec_prefill(cfg: ModelConfig, params, batch, cache_len: int):
+    """Prompt pass; returns (last-token logits, cache): the decoder's
+    self-attention ``k``/``v`` (L, b, S, g, hd) with S = cache_len, the
+    encoder states ``enc`` (b, F, d) and ``len``."""
+    enc, x, positions = _dec_inputs(cfg, params, batch)
+    s = x.shape[1]
+    pad = cache_len - s
+    if pad < 0:
+        raise ValueError("cache_len < prompt length")
+    x, (k_new, v_new) = _dec_stack(cfg, params, x, positions, enc,
+                                   collect_kv=True)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(x[:, -1:], params["embed"])[:, 0]
+    return logits, {"k": _pad_seq(k_new, pad), "v": _pad_seq(v_new, pad),
+                    "enc": enc, "len": s}
+
+
+def encdec_decode(cfg: ModelConfig, params, cache, tokens, pos):
+    """One decode step at the int position ``pos``: the self-attention K/V
+    are written into the cache in place; the cross-attention reads the
+    cached encoder states."""
+    x = embed(tokens, params["embed"], _dtype(cfg))
+    enc = cache["enc"]
+    akw = _attn_kwargs(cfg)
+    for i, pl in enumerate(_unstack(params["dec_layers"])):
+        h = rms_norm(x, pl["ln1"], cfg.norm_eps)
+        o, _ = attn_decode(pl["self_attn"], h,
+                           {"k": cache["k"][i], "v": cache["v"][i]}, pos,
+                           **akw)
+        x = x + o
+        h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
+        o2, _ = attn_decode(pl["cross_attn"], h2, None, pos, enc=enc, **akw)
+        x = _ffn(cfg, pl["ln3"], pl["mlp"], x + o2)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x[:, 0], params["embed"]), dict(cache,
+                                                   len=cache["len"] + 1)

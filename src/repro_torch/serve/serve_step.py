@@ -2,11 +2,12 @@
 
 ``make_prefill``/``make_decode_step`` wrap the model's serving functions
 with the reference's fixed (params, batch) and (params, cache, tokens, pos)
-signatures (``repro/serve/serve_step.py``).  ``cache_zeros``,
-``paged_pool_zeros`` and ``crypto_state_zeros`` are the reference's
-``cache_abstract``, ``paged_pool_abstract`` and ``crypto_state_abstract``
-made concrete: torch has no abstract shapes to trace against, so the shapes
-are reckoned from the configuration.
+signatures (``repro/serve/serve_step.py``).  ``prompt_zeros``,
+``cache_zeros``, ``paged_pool_zeros`` and ``crypto_state_zeros`` are the
+reference's ``prompt_abstract``, ``cache_abstract``,
+``paged_pool_abstract`` and ``crypto_state_abstract`` made concrete:
+torch has no abstract shapes to trace against, so the shapes are reckoned
+from the configuration.
 
 ``Traced`` is the port's form of the reference's no-retrace census: the
 reference counts the graphs ``jax.jit`` compiled for each engine function
@@ -19,10 +20,11 @@ from __future__ import annotations
 import torch
 
 from ..models import decode_step, prefill
-from ..models.model import _PORTED
+from ..models.ssm import _dims as _ssm_dims
+from ..models.ssm_models import _hybrid_split
 from ..models.transformer import _dtype, global_flags
 
-__all__ = ["make_prefill", "make_decode_step", "cache_zeros",
+__all__ = ["make_prefill", "make_decode_step", "prompt_zeros", "cache_zeros",
            "paged_pool_zeros", "crypto_state_zeros", "Traced"]
 
 
@@ -40,27 +42,71 @@ def make_decode_step(cfg):
     return fn
 
 
+def prompt_zeros(cfg, batch: int, seq: int, device="cuda") -> dict:
+    """An all-zero prompt batch of ``batch`` rows of ``seq`` tokens, with
+    the stub inputs of its family (the reference's ``prompt_abstract``):
+    ``patches`` (b, P, d) for vlm, ``frames`` (b, F, d) for encdec.
+
+    >>> from repro_torch.configs import get_config
+    >>> p = prompt_zeros(get_config("whisper-tiny").smoke(), 2, 8, "cpu")
+    >>> {k: tuple(v.shape) for k, v in p.items()}
+    {'tokens': (2, 8), 'frames': (2, 32, 128)}
+    """
+    out = {"tokens": torch.zeros((batch, seq), dtype=torch.int32,
+                                 device=device)}
+    stub = {"vlm": ("patches", cfg.n_patches),
+            "encdec": ("frames", cfg.enc_frames)}.get(cfg.family)
+    if stub is not None:
+        out[stub[0]] = torch.zeros((batch, stub[1], cfg.d_model),
+                                   dtype=torch.float32, device=device)
+    return out
+
+
+def _ssm_state_zeros(cfg, lead: tuple, batch: int, zeros) -> dict:
+    """Stacked Mamba2 states: S (*lead, b, h, ds, p) f32 and the conv ring
+    (*lead, b, W - 1, c) in the compute dtype."""
+    _, h, p, ds, conv_ch = _ssm_dims(cfg)
+    return {"S": zeros(*lead, batch, h, ds, p, dtype=torch.float32),
+            "conv": zeros(*lead, batch, cfg.ssm_conv - 1, conv_ch)}
+
+
 def cache_zeros(cfg, batch: int, cache_len: int, device="cuda") -> dict:
     """The all-zero decode cache of ``batch`` rows of ``cache_len``
-    positions: the tree a prefill of the dense, moe or vlm family returns
-    (the leaves and shapes of the reference's ``cache_abstract``), with
-    ``len`` 0.
+    positions: the tree a prefill of ``cfg``'s family returns (the leaves
+    and shapes of the reference's ``cache_abstract``), with ``len`` 0.
+    The ssm family's holds the per-layer states (``ssm``), the hybrid's the
+    groups' and the tail's states and one KV slot a group, encdec's the
+    decoder's K/V and the encoder states (``enc``).
 
     >>> from repro_torch.configs import get_config
     >>> c = cache_zeros(get_config("gemma3-1b").smoke(), 2, 128, "cpu")
     >>> {k: tuple(v.shape) for k, v in c.items() if k != "len"}["lk"]
     (10, 2, 64, 1, 32)
+    >>> c = cache_zeros(get_config("zamba2-1.2b").smoke(), 2, 128, "cpu")
+    >>> tuple(c["groups"]["S"].shape), tuple(c["k"].shape)
+    ((2, 6, 2, 16, 16, 16), (2, 2, 128, 2, 32))
     """
     cfg.validate()
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family of {cfg.name} is not ported yet "
-            f"(ROADMAP.md, queue 1); the port runs {', '.join(_PORTED)}")
     L, g, hd = cfg.n_layers, cfg.n_kv, cfg.head_dim
     dt = _dtype(cfg)
 
     def zeros(*shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family == "ssm":
+        return {"ssm": _ssm_state_zeros(cfg, (L,), batch, zeros), "len": 0}
+    if cfg.family == "hybrid":
+        groups, per, tail = _hybrid_split(cfg)
+        cache = {"groups": _ssm_state_zeros(cfg, (groups, per), batch, zeros),
+                 "k": zeros(groups, batch, cache_len, g, hd),
+                 "v": zeros(groups, batch, cache_len, g, hd), "len": 0}
+        if tail:
+            cache["tail"] = _ssm_state_zeros(cfg, (tail,), batch, zeros)
+        return cache
+    if cfg.family == "encdec":
+        return {"k": zeros(L, batch, cache_len, g, hd),
+                "v": zeros(L, batch, cache_len, g, hd),
+                "enc": zeros(batch, cfg.enc_frames, cfg.d_model), "len": 0}
 
     if cfg.window and cfg.window_cache:
         n_global = int(global_flags(cfg).sum())

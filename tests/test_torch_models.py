@@ -288,12 +288,41 @@ def test_init_params_shapes_and_statistics():
     assert torch.equal(p["layers"]["mlp"]["wi"], q["layers"]["mlp"]["wi"])
 
 
-@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b",
-                                  "whisper-tiny"])
-def test_families_not_ported_raise(name):
-    cfg = configs.get_config(name).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        abstract_params(cfg)
+@pytest.mark.parametrize("name,count", [("mamba2-370m", 368_363_008),
+                                        ("zamba2-1.2b", 1_104_937_856),
+                                        ("whisper-tiny", 41_197_824)])
+def test_ssm_hybrid_encdec_abstract_params_match_reference(name, count):
+    """The ssm, hybrid and encdec trees at full size on "meta": the
+    reference's leaf names in its flatten order (the hybrid's ``groups``
+    nested (G, g, ...), its 2-layer ``tail``, the ``shared`` block; the
+    encoder and decoder stacks), shapes and dtypes, and its parameter
+    count."""
+    got = flatten_named(abstract_params(configs.get_config(name)))
+    want = r_abstract_params(rconfigs.get_config(name))
+    want = [(jax.tree_util.keystr(path, simple=True, separator="/"), leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(want)]
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name_, t), (_, w) in zip(got, want):
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(w.shape), name_
+        assert str(t.dtype).split(".")[-1] == str(w.dtype), name_
+    assert sum(t.numel() for _, t in got) == count
+
+
+def test_mamba2_init_draws_the_reference_ranges():
+    """The SSM leaves' draws: exp(A_log) in [1, 16), D one, softplus of
+    dt_bias in [1e-3, 1e-1), zero conv bias and norm."""
+    p = init_params(configs.get_config("zamba2-1.2b").smoke(), 4, "cpu")
+    m = p["groups"]["mamba"]
+    assert tuple(m["A_log"].shape) == (2, 6, 16)
+    A = torch.exp(m["A_log"])
+    assert float(A.min()) >= 1.0 and float(A.max()) < 16.0
+    dt = torch.nn.functional.softplus(m["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+    assert float(dt.max()) < 1e-1 * (1 + 1e-5)
+    assert torch.equal(m["D"], torch.ones_like(m["D"]))
+    assert not m["conv_b"].any() and not m["norm"].any()
+    assert float(m["conv_w"].std()) == pytest.approx(0.1, rel=0.05)
 
 
 def test_params_from_reference_checks_the_tree():

@@ -308,9 +308,28 @@ def test_extend_all_positions_and_make_steps_match_reference():
     close(make_decode_step(tc)(tp, gc, T_([[3]]), 20)[0], want)
 
 
-def test_unported_family_prefill_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        prefill(configs.get_config("mamba2-370m").smoke(), {}, {}, 16)
+def test_unknown_family_raises_value_error_as_the_reference_does():
+    """A family no dispatcher knows: ``ValueError`` naming it from every
+    entry point, as the reference's ``models/model.py`` raises it."""
+    rc = dataclasses.replace(rconfigs.get_config("mamba2-370m").smoke(),
+                             family="rnn")
+    tc = dataclasses.replace(configs.get_config("mamba2-370m").smoke(),
+                             family="rnn")
+    toks = np.ones((1, 4), np.int32)
+    calls = [
+        (lambda: r_prefill(rc, {}, {"tokens": J(toks)}, 16),
+         lambda: prefill(tc, {}, {"tokens": T_(toks)}, 16)),
+        (lambda: r_decode_step(rc, {}, {}, J(toks[:, :1]), 4),
+         lambda: decode_step(tc, {}, {}, T_(toks[:, :1]), 4)),
+        (lambda: r_init_params(rc, jax.random.key(0)),
+         lambda: init_params(tc, 0, "cpu")),
+    ]
+    for want_fn, got_fn in calls:
+        with pytest.raises(ValueError) as want:
+            want_fn()
+        with pytest.raises(ValueError) as got:
+            got_fn()
+        assert str(got.value) == str(want.value) == "rnn"
 
 
 @pytest.mark.parametrize("key", SERVE_CONFIGS)
@@ -833,8 +852,6 @@ def test_serve_cli_mixed_families_in_process(capsys):
 @pytest.mark.parametrize("argv,what", [
     (["--warm-restart", "d"], "warm restart"),
     (["--profile-steps", "2"], "profiler window"),
-    (["--arch", "mamba2-370m"], "other families"),
-    (["--arch", "whisper-tiny"], "other families"),
 ])
 def test_serve_cli_refuses_unported_flags(argv, what, capsys):
     with pytest.raises(SystemExit) as e:

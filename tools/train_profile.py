@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
 """Where a full-width training step's time goes on one NVIDIA Hopper card.
 
-    python3 tools/train_profile.py [--trace-dir DIR]
+    python3 tools/train_profile.py [--arch NAME] [--trace-dir DIR]
 
-Runs gemma3-1b at full width (``chip_smoke.py``'s TRAIN_ARGS shapes: batch
-2 x seq 1024, one rank) through ``repro_torch.train.train_step`` on the
-fp32 path and on the RNS codec path (``GradCodec.make(world=2)`` on a
-one-rank NCCL group), warms each up for WARMUP steps and then records
-STEPS steps under ``torch.profiler`` (CPU and CUDA activities), each step
-under a ``record_function`` span and synchronised at its end.
+Runs ``--arch`` (default gemma3-1b) at full width and depth
+(``chip_smoke.py``'s training shapes: batch 2 x seq 1024, one rank) through
+``repro_torch.train.train_step`` on the fp32 path and on the RNS codec
+path (``GradCodec.make(world=2)`` on a one-rank NCCL group), warms each up
+for WARMUP steps and then records STEPS steps under ``torch.profiler``
+(CPU and CUDA activities), each step under a ``record_function`` span and
+synchronised at its end.
 
 For each path it prints one JSON object: the steps' wall ms (the spans),
 the device's busy ms inside them (the union of kernel, memcpy and memset
 intervals) and its idle share, the device ms by kind of kernel (matrix
 products, the codec kernels, the rest by name) and the TOP kernels by
 device time with their launch counts; the Chrome trace goes to
-``DIR/train_profile_<path>.json.gz`` (default ``experiments/train_profile``,
-git-ignored).  Prints the card's name and
-power limit (``nvidia-smi``) first.  Exits 1 without a CUDA device.
+``DIR/train_profile_<arch>_<path>.json.gz`` (default
+``experiments/train_profile``, git-ignored).  For the ssm and hybrid
+families a last object times the SSD core (``models.ssm.ssd``) alone at
+one layer's shapes by CUDA events, forward and forward + backward, and
+reckons its device ms a step: each layer runs it forward twice under
+remat (the forward and the recomputation) and backward once.  Prints the
+card's name and power limit (``nvidia-smi``) first.  Exits 1 without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 WARMUP, STEPS, TOP = 2, 2, 25
+# Card cycles to sleep before a queued SSD timing: longer than the host takes
+# to enqueue one forward and backward of the core (about 5 ms).
+QUEUE_CYCLES = 40_000_000
 TRACE_DIR = os.path.join(ROOT, "experiments", "train_profile")
 # substrings of kernel names, by kind (the first match wins)
 KINDS = (("matmul", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
@@ -112,8 +121,10 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--trace-dir", default=TRACE_DIR)
-    out_dir = ap.parse_args(argv).trace_dir
+    args = ap.parse_args(argv)
+    out_dir = args.trace_dir
     if not torch.cuda.is_available():
         print("train_profile: no CUDA device; nothing was run",
               file=sys.stderr)
@@ -134,7 +145,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     build.load()
     os.makedirs(out_dir, exist_ok=True)
-    cfg = get_config("gemma3-1b")
+    cfg = get_config(args.arch)
     opt_cfg = AdamWConfig(warmup=5, decay_steps=10)
     loader = SyntheticLM(cfg, seq=1024, batch=2)
     init_group(dev)
@@ -161,7 +172,8 @@ def main(argv=None) -> int:
                                      ProfilerActivity.CUDA]) as prof:
                 for i in range(WARMUP, WARMUP + STEPS):
                     step(i)
-            path = os.path.join(out_dir, f"train_profile_{label}.json")
+            path = os.path.join(out_dir,
+                                f"train_profile_{cfg.name}_{label}.json")
             prof.export_chrome_trace(path)
             print(json.dumps(summarize(path, label)), flush=True)
             with open(path, "rb") as f, gzip.open(path + ".gz", "wb") as g:
@@ -170,7 +182,63 @@ def main(argv=None) -> int:
             del params, opt, prof
     finally:
         dist.destroy_process_group()
+    if cfg.family in ("ssm", "hybrid"):
+        print(json.dumps(ssd_timing(cfg, dev)), flush=True)
     return 0
+
+
+def ssd_timing(cfg, dev, batch=2, seq=1024, runs=10) -> dict:
+    """The SSD core of one layer at the training shapes, alone: the median
+    of ``runs`` CUDA-event spans of its forward and of its forward and
+    backward, on seeded f32 inputs in the ranges the model feeds it.  Each
+    run is queued behind a sleep on the card (QUEUE_CYCLES) that outlasts
+    the host's time to enqueue it, so the events time the card's work, not
+    the host's pace."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import ssm
+
+    _, h, p, ds, _ = ssm._dims(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def leaf(t):
+        return t.requires_grad_()
+
+    x = leaf(torch.randn((batch, seq, h, p), generator=g, device=dev))
+    B = leaf(torch.randn((batch, seq, ds), generator=g, device=dev))
+    C = leaf(torch.randn((batch, seq, ds), generator=g, device=dev))
+    dt = leaf(0.01 + 0.09 * torch.rand((batch, seq, h), generator=g,
+                                       device=dev))
+    A = leaf(-1.0 - 15.0 * torch.rand((h,), generator=g, device=dev))
+
+    def timed(backward: bool) -> float:
+        spans = []
+        for i in range(runs + 2):
+            for t in (x, B, C, dt, A):
+                t.grad = None
+            torch.cuda.synchronize(dev)
+            torch.cuda._sleep(QUEUE_CYCLES)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            y, S = ssm.ssd(x, dt, A, B, C, cfg.ssm_chunk)
+            if backward:
+                (y.sum() + S.sum()).backward()
+            e1.record()
+            torch.cuda.synchronize(dev)
+            if i >= 2:
+                spans.append(e0.elapsed_time(e1))
+        return statistics.median(spans)
+
+    fwd, fwd_bwd = timed(False), timed(True)
+    per_step = cfg.n_layers * (fwd_bwd + (fwd if cfg.remat else 0.0))
+    return {"path": "ssd_core", "arch": cfg.name, "batch": batch,
+            "seq": seq, "chunk": cfg.ssm_chunk, "heads": h, "headdim": p,
+            "state": ds, "forward_ms": fwd, "forward_backward_ms": fwd_bwd,
+            "layers": cfg.n_layers, "remat": cfg.remat,
+            "reckoned_ms_per_step": per_step}
 
 
 if __name__ == "__main__":
