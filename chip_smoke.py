@@ -65,7 +65,25 @@ prints one JSON object per line:
                ``tree_pack_rns``, ``all_reduce`` and ``adamw_update`` with
                its decode; per run the peak device memory beside the
                state's reckoned bytes.  Last the ``rns_gradient_training``
-               example at smoke size on the card;
+               example at smoke size on the card, then ``train_e2e`` (the
+               reference's examples/train_e2e.py: llama3.2-3b cut to 8
+               layers, 300 steps on the arith stream): a final loss
+               under 3.0, three legacy checkpoints, ms a step;
+5e. ckpt     — slice 9, the RRNS checkpointer and resume: gemma3-1b at
+               full width cut to CKPT_LAYERS = 6 layers (the host's 45 GiB
+               write limit; 27.8 GB of rrns-v1 state) through the training
+               driver, fp32: run U, 4 steps uninterrupted; run S, 3 steps
+               with ``--save-every 2 --ckpt-keep 1``, one async save of
+               params and AdamW state after step 2 written while step 3
+               runs; run R, ``--inject-ckpt-corrupt 1`` then resume:
+               ``[resume] restored step 2`` with ``repaired_leaves=1``,
+               steps 2 and 3, final parameters equal run U's leaf by leaf
+               (``tensor_fingerprint``).  The snapshot's ms on the
+               training thread, the writer's encode, write + fsync and sha
+               seconds, bytes and GB/s, each step's ms (the one with the
+               save in flight beside run U's and 5b's median), the
+               restore's read, decode, sha and repair seconds, peak host
+               RSS and device memory;
 6. crypto    — slice 3, the RNS crypto lane at RSA-2048 width.  Parity:
                the Montgomery product and ladder-bit kernels against their
                plain versions, bit for bit on every channel, over n_limbs in
@@ -139,6 +157,17 @@ prints one JSON object per line:
                (8 requests a phase, QPS 0.5 to 16, two bisections): the
                transcript, every phase free of new signatures.  Each run's
                kernel launches;
+6g. warm     — slice 9, warm restart: the paged engine of 6c (pages of
+               512, ``--rns-verify``) on 4 requests behind the same
+               1,024-token prefix, 16 new tokens each, with
+               ``--warm-restart``: the cold run persists its retained
+               pages (at least the prefix's 2); one RRNS channel of leaf 0
+               of the state is corrupted; the identical second run repairs
+               it (``ckpt_repaired_leaves`` 1), adopts every page (one
+               codec_encode launch each, revalidating), drops none, dedups
+               against them and gives the cold run's tokens bit for bit.
+               The pool reckoned beside the bytes written; the seconds of
+               ``save_warm_state`` and ``load_warm_state``;
 5c. moe train — slice 7, after a check that TF32 is off for f32 matmuls
                (the MoE router's expert choice): qwen2-moe-a2.7b at full
                width cut to 2 layers through the training CLI, batch 2
@@ -217,8 +246,10 @@ prints one JSON object per line:
 8. kernels   — one line listing every ported kernel, its launches summed
                over the main paths (slice 1, the codec steps, the
                full-width training runs, the crypto lane, the serve runs,
-               the paged runs, the moe training and serve runs, the ssm,
-               hybrid and encdec training runs) and one
+               the paged runs, the warm restart runs, the moe training and
+               serve runs, the ssm, hybrid and encdec training runs; the
+               checkpointed training runs and train_e2e launch none) and
+               one
                timing
                row: mrc and modmul at the
                paper's width, compare on the one column where 17,588 of its
@@ -230,7 +261,8 @@ prints one JSON object per line:
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero with no ``ok`` line; so does a host without a CUDA device, or
-a directory without the repository's ``src/``.
+a directory without the repository's ``src/``.  Everything printed to
+standard output is also written to ``chiprun_out/chip_smoke.out``, whole.
 """
 from __future__ import annotations
 
@@ -318,6 +350,33 @@ TRAIN_ARGS = ("--arch", "gemma3-1b", "--no-smoke", "--batch", "2",
 TRAIN_CHECK_STEP = 1      # the RNS run's step held against the plain versions
 TRAIN_INJECT_STEP = 2     # the --rns-correct run's corrupted step
 TRAIN_MAX_DRIFT = 0.05    # examples/rns_gradient_training.py's own limit
+
+# Slice 9, the checkpointer and warm restart.  Phase 5e checkpoints phase
+# 5b's fp32 run at full width, cut to CKPT_LAYERS layers (one of gemma3's
+# groups of 5 local and 1 global layer): 463,026,816 parameters, whose
+# rrns-v1 state (params and AdamW's m and v, 4 bytes each, 5 int32
+# residues per 4 bytes) is 27.8 GB on disk.  Full depth would be 60.0 GB,
+# more than the 45 GiB that the card's host lets one run of this script
+# write (it counts every byte written, deleted or not); tools/ckpt_probe.py's rates
+# there (0.98 GB/s written and fsynced, 3.4 GB/s read, sha256 1.41 GB/s a
+# thread) would have allowed it.  Run U trains TRAIN_ARGS' steps at the
+# cut without a checkpoint; run S saves once, asynchronously, after step 2
+# of 3; run R corrupts one RRNS channel of it, restores it and runs steps
+# 2 and 3, and must end equal to run U.  Both write under CKPT_DIR in the
+# checkout (git-ignored), removed after the phase.  Phase 6g runs the
+# paged engine twice on WARM_SHARED requests behind the paged trace's
+# 1,024-token prefix, persisting and adopting its pool under WARM_DIR.
+RUN_WRITE_LIMIT = 45 << 30     # bytes one run may write on the card's host
+CKPT_DIR = os.path.join(ROOT, "_ckpt_smoke")
+CKPT_LAYERS = 6
+CKPT_SAVE_STEPS = 3
+CKPT_SAVE_FLAGS = ("--save-every", "2", "--ckpt-keep", "1")
+CKPT_SAVED_STEP = 2
+CKPT_CHANNELS = 5          # 3 base + 2 redundant residues per uint32 limb
+E2E_DIR = os.path.join(CKPT_DIR, "train_e2e")
+WARM_DIR = os.path.join(CKPT_DIR, "warm")
+WARM_SHARED, WARM_MAX_NEW = 4, 16
+WARM_ARGS = ("--page-size", "512", "--rns-verify")
 
 # Slice 3, the crypto lane at RSA-2048 width: CryptoContext(n_limbs=138,
 # exp_bits=2048) — 138 15-bit moduli a side (M, M' of 2062 bits), nch_lo =
@@ -407,9 +466,13 @@ PAGED_LOADGEN = PAGED_ENGINE + (
 MOE_ARCH, VLM_ARCH = "qwen2-moe-a2.7b", "internvl2-26b"
 
 
+def with_flag(args: tuple, flag: str, value: str) -> tuple:
+    i = args.index(flag) + 1
+    return args[:i] + (value,) + args[i + 1:]
+
+
 def with_arch(args: tuple, arch: str) -> tuple:
-    i = args.index("--arch") + 1
-    return args[:i] + (arch,) + args[i + 1:]
+    return with_flag(args, "--arch", arch)
 
 
 MOE_SERVE_ARGS = with_arch(SERVE_ARGS, MOE_ARCH)
@@ -492,6 +555,21 @@ def median_ms(fn, runs=20, warmup=3, inner=1, queued=False):
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class Tee:
+    """Standard output copied, line for line, into a file."""
+
+    def __init__(self, stream, path: str):
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text: str) -> int:
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self) -> None:
+        self.file.flush()
+        self.stream.flush()
 
 
 def free_card() -> None:
@@ -1266,7 +1344,8 @@ def train_run(dev, max_err, label, flags=(), check=None, args=TRAIN_ARGS,
         params, summary = launch_train.main(argv)
         seconds = time.perf_counter() - t0
     steps = probe.report()
-    channels = 0 if not flags else (5 if "--rns-correct" in flags else 4)
+    channels = (5 if "--rns-correct" in flags
+                else 4 if "--rns-allreduce" in flags else 0)
     want = implied(codec_encode=1, codec_decode=1) if channels else implied()
     total = Counter()
     for i, s in enumerate(steps):
@@ -1275,7 +1354,8 @@ def train_run(dev, max_err, label, flags=(), check=None, args=TRAIN_ARGS,
         require(math.isfinite(summary["losses"][i]),
                 f"train {label} step {i}: loss {summary['losses'][i]}")
         total.update(s["launches"])
-        row = {"phase": phase, "run": label, "step": i,
+        row = {"phase": phase, "run": label,
+               "step": summary["start_step"] + i,
                "loss": summary["losses"][i], "aux": summary["auxes"][i],
                "gnorm": summary["gnorms"][i],
                "ms": summary["step_ms"][i],
@@ -1297,7 +1377,7 @@ def train_run(dev, max_err, label, flags=(), check=None, args=TRAIN_ARGS,
                 f"train {label}: kernels checked {probe.checked}")
     return {"params": params, "summary": summary, "seconds": seconds,
             "launches": implied(**total), "checked": probe.checked,
-            "elements": elements,
+            "elements": elements, "printed": out.getvalue(),
             "reckoned_bytes": train_reckoning(elements, channels)}
 
 
@@ -1365,7 +1445,187 @@ def train_main_path(dev, max_err) -> dict:
           "first_loss": ex["l_rns"][0], "last_loss": ex["l_rns"][-1],
           "launches": got})
     return {"launches": implied(**launches), "drift": drift,
-            "example_drift": ex["drift"]}
+            "example_drift": ex["drift"],
+            "fp32_step_ms_median": statistics.median(
+                runs["fp32"]["step_ms"])}
+
+
+def e2e_path(dev) -> dict:
+    """The train_e2e example on the card: its 300 steps, a checkpoint
+    every 100 (three, in the legacy format, under E2E_DIR), a final loss
+    under 3.0, and none of the seven kernels launched (the fp32 path)."""
+    import torch
+
+    from repro_torch import train_e2e
+    from repro_torch.kernels import ops
+
+    free_card()
+    shutil.rmtree(E2E_DIR, ignore_errors=True)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        r = train_e2e.main(dev, ckpt_dir=E2E_DIR, verbose=False)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts(ops)
+        names = sorted(os.listdir(E2E_DIR))
+    finally:
+        shutil.rmtree(E2E_DIR, ignore_errors=True)
+    steps = train_e2e.STEPS
+    require(len(r["losses"]) == steps
+            and r["losses"][-1] < train_e2e.MAX_FINAL_LOSS,
+            f"train_e2e: final loss {r['losses'][-1]}")
+    require(names == [f"step_{s}" for s in (100, 200, 300)]
+            and len(r["checkpoints"]) == 3,
+            f"train_e2e: checkpoints {names}")
+    require(launches == implied(), f"train_e2e launches {launches}")
+    del r["params"], r["opt"]
+    torch.cuda.synchronize()
+    return {"seconds": seconds, "steps": steps, "n_params": r["n_params"],
+            "ms_per_step": r["ms_per_step"], "first_loss": r["losses"][0],
+            "final_loss": r["losses"][-1], "checkpoints": names,
+            "launches": launches}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def host_rss_peak() -> int:
+    """The process's peak resident set so far, in bytes."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def ckpt_tree() -> dict:
+    """{leaf name: shape} of gemma3-1b's parameters cut to CKPT_LAYERS."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist._tree import flatten_named
+    from repro_torch.models import abstract_params
+
+    cfg = get_config("gemma3-1b")
+    if CKPT_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    return {name: tuple(leaf.shape) for name, leaf in
+            flatten_named(abstract_params(cfg))}
+
+
+def ckpt_main_path(dev, max_err, fp32_step_ms) -> dict:
+    """Phase 5e: gemma3-1b's training state, at full width cut to
+    CKPT_LAYERS, through the RRNS checkpointer.  Run U trains TRAIN_ARGS'
+    fp32 steps uninterrupted; run S trains CKPT_SAVE_STEPS with one async
+    rrns-v1 save after step CKPT_SAVED_STEP, written while the next step
+    runs; run R corrupts one RRNS channel of leaf 0 of that save
+    (``--inject-ckpt-corrupt 1``), restores it with the channel repaired
+    and trains the remaining steps: its final parameters must equal run
+    U's leaf by leaf (``tensor_fingerprint``).  Reports the snapshot's ms
+    on the training thread, the writer's encode, write + fsync and sha
+    seconds, the bytes on disk and the rates, each step's ms beside run
+    U's and 5b's median, the restore's read, decode, sha and repair
+    seconds, and the peaks of host RSS and device memory."""
+    from repro_torch.dist.fault import tensor_fingerprint
+    from repro_torch.train import checkpointer as ckpt
+
+    tree = ckpt_tree()
+    elements = sum(math.prod(s) for s in tree.values())
+    limbs = 3 * elements + 1                  # params, m, v and the step
+    leaves = 3 * len(tree) + 1
+    payload = CKPT_CHANNELS * 4 * limbs       # the wire files' int32 data
+    need = payload + leaves * 256 + (1 << 20)  # headers, the manifest
+    require(need < RUN_WRITE_LIMIT * 3 // 4,
+            f"ckpt: {need} bytes to write, the run may write "
+            f"{RUN_WRITE_LIMIT} in all")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    require(free > need, f"ckpt: the save needs {need} bytes on disk under "
+            f"{CKPT_DIR}, {free} are free")
+    rss_before = host_rss_peak()
+    t_start = time.perf_counter()
+    whole = train_run(dev, max_err, "uninterrupted", args=TRAIN_ARGS,
+                      layers=CKPT_LAYERS, phase="ckpt")
+    want = {name: tensor_fingerprint(p) for name, p in _named(whole["params"])}
+    del whole["params"]
+    try:
+        save = train_run(dev, max_err, "save",
+                         ("--ckpt-dir", CKPT_DIR) + CKPT_SAVE_FLAGS,
+                         args=with_flag(TRAIN_ARGS, "--steps",
+                                        str(CKPT_SAVE_STEPS)),
+                         layers=CKPT_LAYERS, phase="ckpt")
+        rss_save = host_rss_peak()
+        s = save["summary"]
+        saves = s["ckpt_saves"]
+        require(len(saves) == 1 and saves[0]["step"] == CKPT_SAVED_STEP
+                and ckpt.discover_steps(CKPT_DIR) == [CKPT_SAVED_STEP],
+                f"ckpt: saves {saves}, on disk "
+                f"{ckpt.discover_steps(CKPT_DIR)}")
+        step_dir = os.path.join(CKPT_DIR, f"step_{CKPT_SAVED_STEP}")
+        on_disk = dir_bytes(step_dir)
+        require(payload < saves[0]["bytes"] < on_disk < need,
+                f"ckpt: {saves[0]['bytes']} wire bytes, {on_disk} on disk, "
+                f"{payload} of residues reckoned")
+        del save["params"]
+        resume = train_run(dev, max_err, "resume",
+                           ("--ckpt-dir", CKPT_DIR, "--inject-ckpt-corrupt",
+                            "1"), args=TRAIN_ARGS, layers=CKPT_LAYERS,
+                           phase="ckpt")
+        rss_resume = host_rss_peak()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    printed, r = resume["printed"], resume["summary"]
+    require(f"[inject] corrupted 1 RRNS channel(s) of step "
+            f"{CKPT_SAVED_STEP}, leaf 0, element 0" in printed,
+            "ckpt: the [inject] line")
+    line = next((ln for ln in printed.splitlines()
+                 if ln.startswith("[resume] restored step")), "")
+    require(line.startswith(f"[resume] restored step {CKPT_SAVED_STEP}: ")
+            and "repaired_leaves=1 " in line and "steps_skipped=0" in line,
+            f"ckpt: resume line {line!r}")
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    require(r["start_step"] == CKPT_SAVED_STEP
+            and len(r["losses"]) == steps - CKPT_SAVED_STEP,
+            f"ckpt: resumed at {r['start_step']}, {len(r['losses'])} steps")
+    got = {name: tensor_fingerprint(p) for name, p in _named(resume["params"])}
+    differ = sorted(n for n in got if got[n] != want.get(n))
+    require(got.keys() == want.keys() and not differ,
+            f"ckpt: resumed parameters differ from run U's: {differ}")
+    del resume["params"]
+    w, rest = saves[0], r["restored"]
+    wire_gb = w["bytes"] / 1e9
+    return {
+        "seconds": time.perf_counter() - t_start,
+        "layers": CKPT_LAYERS, "elements": elements,
+        "wire_bytes": w["bytes"],
+        "on_disk_bytes": on_disk, "disk_free_before": free,
+        "snapshot_ms": w["snapshot_ms"], "writer_seconds": w["seconds"],
+        "encode_s": w["encode_s"], "write_fsync_s": w["write_s"],
+        "sha_s": w["sha_s"],
+        "write_fsync_gb_per_s": wire_gb / w["write_s"],
+        "writer_gb_per_s": wire_gb / w["seconds"],
+        "save_step_ms": s["step_ms"],
+        "in_flight_step": CKPT_SAVED_STEP,
+        "in_flight_step_ms": s["step_ms"][CKPT_SAVED_STEP],
+        "uninterrupted_step_ms": whole["summary"]["step_ms"],
+        "fp32_step_ms_median": fp32_step_ms,
+        "save_run_seconds": save["seconds"],
+        "restore": rest,
+        "restore_base_gb_per_s": 0.6 * wire_gb / rest["read_s"],
+        "resume_step_ms": r["step_ms"],
+        "resume_run_seconds": resume["seconds"],
+        "repaired_leaves": rest["repaired_leaves"],
+        "repaired_elements": rest["repaired_elements"],
+        "params_equal_uninterrupted": True,
+        "max_memory_allocated": {
+            "uninterrupted": whole["summary"]["max_memory_allocated"],
+            "save": s["max_memory_allocated"],
+            "resume": r["max_memory_allocated"]},
+        "host_rss_peak": {"before": rss_before, "save": rss_save,
+                          "resume": rss_resume},
+        "launches": implied(**(Counter(whole["launches"])
+                               + Counter(save["launches"])
+                               + Counter(resume["launches"]))),
+    }
 
 
 # ------------------------------------------------ slice 3: the crypto lane
@@ -2055,10 +2315,13 @@ def serve_main_path(dev, max_err) -> dict:
 
 
 # ----------------------------------------------- slice 6: the paged pool
-def paged_trace(path: str, engine=PAGED_ENGINE) -> list:
+def paged_trace(path: str, engine=PAGED_ENGINE, shared=PAGED_SHARED,
+                bare=PAGED_BARE, max_new=PAGED_MAX_NEW) -> list:
     """Write phase 6c's JSONL workload (the serve CLI's ``--trace``
     format), token ids drawn below the vocabulary of ``engine``'s arch,
-    and return its requests as dicts."""
+    and return its requests as dicts: ``shared`` requests behind the
+    prefix, then ``bare`` ones of the bare prefix (6g takes the first
+    requests of the same draws)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2068,14 +2331,14 @@ def paged_trace(path: str, engine=PAGED_ENGINE) -> list:
     rng = np.random.default_rng(0)
     prefix = [int(t) for t in rng.integers(1, vocab, PAGED_PREFIX)]
     t, reqs = 0.0, []
-    for rid in range(PAGED_SHARED + PAGED_BARE):
+    for rid in range(shared + bare):
         t += float(rng.exponential(1.0 / PAGED_RATE))
-        if rid < PAGED_SHARED:
+        if rid < shared:
             n = max(1, int(rng.poisson(PAGED_SUFFIX_MEAN)))
             prompt = prefix + [int(x) for x in rng.integers(1, vocab, n)]
         else:
             prompt = list(prefix)
-        reqs.append({"rid": rid, "prompt": prompt, "max_new": PAGED_MAX_NEW,
+        reqs.append({"rid": rid, "prompt": prompt, "max_new": max_new,
                      "eos": None, "arrival": t})
     with open(path, "w") as f:
         for r in reqs:
@@ -2316,6 +2579,123 @@ def paged_main_path(dev, max_err) -> dict:
 
 
 # ------------------------------------------- slice 7: the moe and vlm families
+def warm_main_path(dev) -> dict:
+    """Phase 6g: warm restart of gemma3-1b's paged engine at full width
+    (PAGED_ENGINE, pages of 512, ``--rns-verify``) on WARM_SHARED
+    requests behind the 1,024-token prefix, WARM_MAX_NEW new tokens each.
+    The cold run with ``--warm-restart`` persists its retained pages (at
+    least the prefix's two); one RRNS channel of leaf 0 of that state is
+    corrupted; the identical second run must restore it with the channel
+    repaired, adopt every saved page (each revalidated against a codeword
+    recomputed by the codec_encode kernel), drop none, dedup against them
+    and give the cold run's tokens bit for bit.  The pool is reckoned
+    beside the bytes written."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import batcher
+    from repro_torch.train import checkpointer as ckpt
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "warm_trace.jsonl")
+    trace = paged_trace(path, PAGED_ENGINE, shared=WARM_SHARED, bare=0,
+                        max_new=WARM_MAX_NEW)
+    argv = PAGED_ENGINE + WARM_ARGS + ("--warm-restart", WARM_DIR,
+                                       "--trace", path)
+    B = batcher.ContinuousBatcher
+    orig = {n: getattr(B, n) for n in ("save_warm_state", "load_warm_state",
+                                       "drain_completed")}
+    calls, drained = [], []
+
+    def drain(eng):
+        # the CLI drains the retired requests before it persists the pool
+        done = orig["drain_completed"](eng)
+        drained.extend(done)
+        return done
+
+    def timed(name):
+        def call(eng, state_dir):
+            torch.cuda.synchronize()
+            before, t0 = launch_counts(ops), time.perf_counter()
+            try:
+                return orig[name](eng, state_dir)
+            finally:
+                torch.cuda.synchronize()
+                after = launch_counts(ops)
+                calls.append({"call": name,
+                              "seconds": time.perf_counter() - t0,
+                              "launches": {k: after[k] - before[k]
+                                           for k in after}})
+        return call
+
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    t_start = time.perf_counter()
+    runs = {}
+    try:
+        for name in ("save_warm_state", "load_warm_state"):
+            setattr(B, name, timed(name))
+        B.drain_completed = drain
+        for label in ("cold", "warm"):
+            if label == "warm":
+                ckpt.inject_channel_corruption(
+                    os.path.join(WARM_DIR, "step_0"), leaf=0, channels=(2,))
+            r = serve_run(argv)
+            eng = r.pop("engine")
+            r["tokens"] = {q.rid: list(q.out) for q in drained}
+            drained.clear()
+            r["pool_bytes"] = sum(eng.cache[n].numel()
+                                  * eng.cache[n].element_size()
+                                  for n in ("k", "v"))
+            r["n_pages"] = eng.n_pages
+            r["state_bytes"] = dir_bytes(WARM_DIR)
+            r["calls"], calls[:] = list(calls), []
+            del eng, r["probe"]
+            free_card()
+            runs[label] = r
+    finally:
+        for name, fn in orig.items():
+            setattr(B, name, fn)
+        shutil.rmtree(WARM_DIR, ignore_errors=True)
+    cold, warm = runs["cold"], runs["warm"]
+    cw, ww = cold["report"]["warm_restart"], warm["report"]["warm_restart"]
+    require(cw["restored"] is False and cw["pages_saved"] >= 2,
+            f"warm: cold run {cw}")
+    require(ww["restored"] is True and ww["ckpt_repaired_leaves"] == 1
+            and ww["adopted"] == cw["pages_saved"] and ww["dropped"] == 0,
+            f"warm: second run {ww}")
+    pg, rns = warm["report"]["paging"], warm["report"]["rns"]
+    require(pg["dedup_hits"] >= 1 and rns["slots_failed"] == 0
+            and cold["report"]["rns"]["slots_failed"] == 0,
+            f"warm: paging {pg}, rns {rns}")
+    require(warm["tokens"] == cold["tokens"]
+            and len(warm["tokens"]) == len(trace),
+            "warm: the second run's tokens differ from the cold run's")
+    load = next(c for c in warm["calls"] if c["call"] == "load_warm_state")
+    require(load["launches"] == implied(codec_encode=ww["adopted"]),
+            f"warm: revalidation launches {load['launches']}")
+    pool = cold["pool_bytes"]
+    return {
+        "seconds": time.perf_counter() - t_start,
+        "requests": len(trace), "max_new": WARM_MAX_NEW,
+        "cold": {"warm_restart": cw, "seconds": cold["seconds"],
+                 "dedup_hits": cold["report"]["paging"]["dedup_hits"],
+                 "calls": cold["calls"], "launches": cold["launches"]},
+        "warm": {"warm_restart": ww, "seconds": warm["seconds"],
+                 "dedup_hits": pg["dedup_hits"], "calls": warm["calls"],
+                 "launches": warm["launches"]},
+        "pool_reckoned": {"n_pages": cold["n_pages"],
+                          "page_size": int(WARM_ARGS[1]),
+                          "pool_bytes": pool,
+                          "wire_bytes": CKPT_CHANNELS * pool},
+        "state_bytes_written": cold["state_bytes"],
+        "revalidation_encode_launches": load["launches"]["codec_encode"],
+        "tokens_equal": True,
+        "launches": implied(**(Counter(cold["launches"])
+                               + Counter(warm["launches"]))),
+    }
+
+
 def moe_train_path(dev, max_err) -> dict:
     """Phase 5c: qwen2-moe-a2.7b at full width cut to MOE_TRAIN_LAYERS
     layers through the training CLI (MOE_TRAIN_ARGS), the fp32 run and
@@ -2827,6 +3207,9 @@ def main() -> int:
 
     dev = torch.device(DEVICE, 0)
     t_start = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    sys.stdout = Tee(sys.stdout,
+                     os.path.join(ROOT, "chiprun_out", "chip_smoke.out"))
 
     # ---------------------------------------------------------- 1. card
     smi = subprocess.run(
@@ -3047,6 +3430,29 @@ def main() -> int:
     for k in launches:
         launches[k] += train["launches"][k]
     emit({"phase": "train", "step": "total", **train})
+    e2e = e2e_path(dev)
+    emit({"phase": "train", "step": "train_e2e", **e2e, "card": card})
+
+    # -------------------------- 5e. ckpt: slice 9's checkpointed training
+    ck = ckpt_main_path(dev, max_err, train["fp32_step_ms_median"])
+    for k in launches:
+        launches[k] += ck["launches"][k]
+    emit({"phase": "ckpt", "step": "total", **ck, "card": card})
+    rest = ck["restore"]
+    print(f"ckpt: gemma3-1b full width, {ck['layers']} layers, {card}: "
+          f"{ck['wire_bytes']} bytes of rrns-v1 state, snapshot "
+          f"{ck['snapshot_ms']:.1f} ms on the training thread, writer "
+          f"{ck['writer_seconds']:.1f} s (encode {ck['encode_s']:.1f}, "
+          f"write+fsync {ck['write_fsync_s']:.1f}, sha {ck['sha_s']:.1f}; "
+          f"{ck['write_fsync_gb_per_s']:.3f} GB/s), step ms "
+          f"{[round(x, 1) for x in ck['save_step_ms']]} with the save in "
+          f"flight at step {ck['in_flight_step']} (5b median "
+          f"{ck['fp32_step_ms_median']:.1f}); restore {rest['seconds']:.1f} "
+          f"s (read {rest['read_s']:.1f}, decode {rest['decode_s']:.1f}, "
+          f"sha {rest['sha_s']:.1f}, repair {rest['repair_s']:.1f}), "
+          f"repaired_leaves {ck['repaired_leaves']}, resumed params equal "
+          f"the uninterrupted run's; train_e2e {e2e['ms_per_step']:.1f} ms/step, final loss "
+          f"{e2e['final_loss']:.4f}", flush=True)
 
     # ------------------------------------- 6. crypto: slice 3's main path
     t0 = time.perf_counter()
@@ -3107,6 +3513,24 @@ def main() -> int:
           f"{off['ttft_s']['p50']:.3f} s, latency p50 "
           f"{off['latency_s']['p50']:.3f} s; loadgen max QPS "
           f"{paged['loadgen']['max_qps']}", flush=True)
+
+    # ------------------------------ 6g. warm: slice 9's warm restart
+    warm = warm_main_path(dev)
+    for k in launches:
+        launches[k] += warm["launches"][k]
+    emit({"phase": "warm", "step": "total", **warm, "card": card})
+    print(f"warm: gemma3-1b full width, {card}: cold run "
+          f"{warm['cold']['seconds']:.1f} s persisted "
+          f"{warm['cold']['warm_restart']['pages_saved']} pages in "
+          f"{warm['state_bytes_written']} bytes (pool reckoned "
+          f"{warm['pool_reckoned']['pool_bytes']} bytes, "
+          f"{warm['pool_reckoned']['wire_bytes']} of wire); second run "
+          f"{warm['warm']['seconds']:.1f} s adopted "
+          f"{warm['warm']['warm_restart']['adopted']} after repairing "
+          f"{warm['warm']['warm_restart']['ckpt_repaired_leaves']} leaf, "
+          f"{warm['revalidation_encode_launches']} codec_encode launches "
+          f"revalidating, {warm['warm']['dedup_hits']} dedup hits, tokens "
+          f"equal", flush=True)
 
     # --- 5c, 5d, 6d, 6e, 6f: slices 7 and 8, the moe, vlm, ssm, hybrid and
     # encdec families

@@ -141,25 +141,36 @@ class WireStore:
         self.raw[key] = dataclasses.replace(arr, residues=res)
 
 
-def _host_bytes(arr) -> tuple[str, tuple, bytes]:
-    """(dtype name, shape, raw C-order bytes) of a tensor or array, with the
-    reference's dtype names (numpy's; ``bfloat16`` for bf16)."""
+def _host_bytes(arr) -> tuple[str, tuple, np.ndarray]:
+    """(dtype name, shape, raw C-order bytes as a flat uint8 array) of a
+    tensor or array, with the reference's dtype names (numpy's;
+    ``bfloat16`` for bf16) and its shapes (a 0-d leaf hashes as (1,), as
+    ``np.ascontiguousarray`` makes it)."""
     if isinstance(arr, torch.Tensor):
         t = arr.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            return "bfloat16", tuple(t.shape), t.view(torch.int16).numpy().tobytes()
+            raw = t.reshape(-1).view(torch.int16).numpy().view(np.uint8)
+            return "bfloat16", tuple(t.shape) or (1,), raw
         arr = t.numpy()
     a = np.ascontiguousarray(np.asarray(arr))
-    return str(a.dtype), a.shape, a.tobytes()
+    return str(a.dtype), a.shape, a.reshape(-1).view(np.uint8)
+
+
+def fingerprint_hasher(dtype: str, shape: tuple):
+    """A sha256 fed the fingerprint's prefix: ``tensor_fingerprint`` is its
+    first 32 hex digits once the leaf's raw bytes follow (in any number of
+    ``update`` calls)."""
+    h = hashlib.sha256()
+    h.update(dtype.encode())
+    h.update(str(tuple(shape) or (1,)).encode())
+    return h
 
 
 def tensor_fingerprint(arr) -> str:
     """Content hash of one tensor or array: dtype, shape, raw bytes."""
     dtype, shape, raw = _host_bytes(arr)
-    h = hashlib.sha256()
-    h.update(dtype.encode())
-    h.update(str(shape).encode())
-    h.update(raw)
+    h = fingerprint_hasher(dtype, shape)
+    h.update(memoryview(raw))
     return h.hexdigest()[:32]
 
 

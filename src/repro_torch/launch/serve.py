@@ -79,14 +79,26 @@ engine and raise there.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
         --no-smoke --requests 4 --prompt-mean 64 --max-new 32
 
-Not ported yet, each refused with the ROADMAP item it waits for:
-``--warm-restart`` and the profiler window (``--profile-*``).
+``--warm-restart DIR`` (with ``--page-size``, ``--rns-verify`` and prefix
+sharing) restores and revalidates the previous run's retained prefix pages
+before serving, and persists this run's pool there afterwards, in the
+checkpointer's RRNS format (the report's ``warm_restart`` block):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --page-size 8 --cache-len 64 --prefill-chunk 8 --prompt-mean 10 \
+        --rns-verify --warm-restart /tmp/warm        # run it twice
+
+``--profile-start-step/--profile-steps`` capture a ``torch.profiler`` trace
+of that window of driver steps (decode ticks in ``sim``, loop iterations
+in ``offline``/``loadgen``) into the report's directory (``--profile-dir``
+overrides it); the report's ``profile`` block names it.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import time
 from collections import Counter
 
@@ -99,13 +111,13 @@ from ..serve.batcher import ContinuousBatcher
 from ..serve.crypto import CryptoContext, CryptoRequest
 from ..serve.offline import OfflineInference, pow2_buckets, sample_stats
 from ..serve.scheduler import Request
+from .profiling import ProfilerWindow
 
 __all__ = ["main", "simulate", "simulate_single_shot", "synth_requests",
            "synth_crypto_requests", "load_trace", "save_trace"]
 
 FAMILIES = ("llm", "crypto")
 _TRIES = 4096   # rejection-sampling tries drawn per block
-_ROADMAP = "ROADMAP.md, queue 1"
 
 
 def _bigint(v) -> int:
@@ -246,9 +258,10 @@ def save_trace(path: str, reqs: list) -> None:
             f.write(json.dumps(d) + "\n")
 
 
-def simulate(engine: ContinuousBatcher, reqs: list) -> dict:
+def simulate(engine: ContinuousBatcher, reqs: list, on_step=None) -> dict:
     """Run the arrival/admission/decode loop to completion; returns the
-    tick-clock counters (requests stamp their own t_* fields)."""
+    tick-clock counters (requests stamp their own t_* fields).
+    ``on_step`` fires once per decode tick (profiler hook)."""
     reqs = sorted(reqs, key=lambda r: r.arrival)
     t, i, steps, max_conc = 0.0, 0, 0, 0
     while i < len(reqs) or engine.busy:
@@ -261,6 +274,8 @@ def simulate(engine: ContinuousBatcher, reqs: list) -> dict:
                      if engine.crypto is not None else [])
         if decoding or laddering:
             max_conc = max(max_conc, len(decoding) + len(laddering))
+            if on_step is not None:
+                on_step()
             engine.step(now=t)
             t += 1.0
             steps += 1
@@ -436,30 +451,22 @@ def _parser() -> argparse.ArgumentParser:
                     help="SLO: TTFT p99 bound (milliseconds)")
     ap.add_argument("--slo-p99-ms", type=float, default=10000.0,
                     help="SLO: end-to-end latency p99 bound (ms)")
-    # the reference's flags for what is not ported yet: each refused, with
-    # the ROADMAP item it waits for
-    later = ap.add_argument_group("not ported yet (refused)")
-    later.add_argument("--warm-restart", default=None, metavar="DIR")
-    later.add_argument("--profile-start-step", type=int, default=-1)
-    later.add_argument("--profile-steps", type=int, default=0)
-    later.add_argument("--profile-dir", default=None)
+    ap.add_argument("--warm-restart", default=None, metavar="DIR",
+                    help="warm-restart state dir (needs --page-size and "
+                         "--rns-verify): restore + revalidate the previous "
+                         "run's retained prefix pages before serving, and "
+                         "persist this run's pool state there afterwards")
+    ap.add_argument("--profile-start-step", type=int, default=-1,
+                    metavar="N",
+                    help="driver step at which to start a torch.profiler "
+                         "trace (-1 disables; a step is a decode tick in "
+                         "sim, a loop iteration in offline/loadgen)")
+    ap.add_argument("--profile-steps", type=int, default=0, metavar="N",
+                    help="driver steps to capture in the profiler window")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="profiler artifact directory (default: the "
+                         "--report directory, else '.')")
     return ap
-
-
-# flag -> (argparse dest, what it waits for)
-_UNPORTED = {
-    "--warm-restart": ("warm_restart",
-                       "warm restart, with the checkpointer"),
-    "--profile-start-step": ("profile_start_step", "the profiler window"),
-    "--profile-steps": ("profile_steps", "the profiler window"),
-    "--profile-dir": ("profile_dir", "the profiler window"),
-}
-
-
-def _refuse_unported(ap, args) -> None:
-    for flag, (dest, what) in _UNPORTED.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.error(f"{flag} waits for {what} ({_ROADMAP})")
 
 
 def _parse_buckets(spec: str, cache_len: int, ap) -> tuple | None:
@@ -475,10 +482,10 @@ def _parse_buckets(spec: str, cache_len: int, ap) -> tuple | None:
     return buckets
 
 
-def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng):
+def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng, window):
     """``--mode offline|loadgen``: the wall-clock saturation harness
-    (DESIGN.md §16) instead of the tick-clock replay.  Returns
-    ``(report, harness)``."""
+    (DESIGN.md §16) instead of the tick-clock replay, ``window`` stepped
+    once a loop iteration.  Returns ``(report, harness)``."""
     buckets = _parse_buckets(args.buckets, args.cache_len, ap)
     harness = OfflineInference(
         cfg, params, n_slots=args.slots, cache_len=args.cache_len,
@@ -493,6 +500,7 @@ def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng):
     warm = harness.warmup()
     print(f"# warmup: {len(warm['warmed_plens'])} prefill width(s) x "
           f"{warm['replicas']} replica(s) reached: {warm['jit_traces']}")
+    harness.on_step = window.step
     report = {
         "arch": cfg.name,
         "mode": args.mode,
@@ -502,43 +510,50 @@ def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng):
         "cache_len": args.cache_len,
         "warmup": warm,
     }
-    if args.mode == "offline":
-        for r in reqs:
-            r.arrival = 0.0   # offline scenario: all available at t=0
-        report.update(harness.run(reqs))
-        harness.require_steady_state()
-        crypto_done = [r for r, _ in harness.completions
-                       if getattr(r, "family", "llm") == "crypto"]
-        if crypto_done:
-            report["crypto"] = _crypto_report(
-                crypto_done, harness.engines[0].crypto_ctx,
-                clock_key="latency_s")
-        if args.rns_verify:
-            report["rns"] = {
-                "slots_verified": harness.replica_set.verify_ok,
-                "slots_failed": harness.replica_set.verify_failed,
-            }
-    else:
-        from ..serve.loadgen import SLO, poisson_requests, search_max_qps
+    try:
+        if args.mode == "offline":
+            for r in reqs:
+                r.arrival = 0.0   # offline scenario: all available at t=0
+            report.update(harness.run(reqs))
+            harness.require_steady_state()
+            crypto_done = [r for r, _ in harness.completions
+                           if getattr(r, "family", "llm") == "crypto"]
+            if crypto_done:
+                report["crypto"] = _crypto_report(
+                    crypto_done, harness.engines[0].crypto_ctx,
+                    clock_key="latency_s")
+            if args.rns_verify:
+                report["rns"] = {
+                    "slots_verified": harness.replica_set.verify_ok,
+                    "slots_failed": harness.replica_set.verify_failed,
+                }
+        else:
+            from ..serve.loadgen import SLO, poisson_requests, search_max_qps
 
-        slo = SLO(ttft_p99_s=args.slo_ttft_ms / 1e3,
-                  latency_p99_s=args.slo_p99_ms / 1e3)
-        rid_counter = [0]
+            slo = SLO(ttft_p99_s=args.slo_ttft_ms / 1e3,
+                      latency_p99_s=args.slo_p99_ms / 1e3)
+            rid_counter = [0]
 
-        def make_requests(n, qps):
-            rid0 = rid_counter[0]
-            rid_counter[0] += n
-            return poisson_requests(
-                n, qps, rng, vocab=cfg.vocab, prompt_mean=args.prompt_mean,
-                max_new=args.max_new, cache_len=args.cache_len, rid0=rid0)
+            def make_requests(n, qps):
+                rid0 = rid_counter[0]
+                rid_counter[0] += n
+                return poisson_requests(
+                    n, qps, rng, vocab=cfg.vocab,
+                    prompt_mean=args.prompt_mean, max_new=args.max_new,
+                    cache_len=args.cache_len, rid0=rid0)
 
-        out = search_max_qps(
-            harness, make_requests, slo, qps_lo=args.qps_lo,
-            qps_hi=args.qps_hi, iters=args.qps_iters,
-            phase_requests=args.phase_requests)
-        harness.require_steady_state()
-        report.update(out)
-        print(f"# loadgen: {out['note']}")
+            out = search_max_qps(
+                harness, make_requests, slo, qps_lo=args.qps_lo,
+                qps_hi=args.qps_hi, iters=args.qps_iters,
+                phase_requests=args.phase_requests)
+            harness.require_steady_state()
+            report.update(out)
+            print(f"# loadgen: {out['note']}")
+    finally:
+        window.close()
+    if window.enabled:
+        report["profile"] = {"artifact": window.artifact,
+                             "captured_steps": window.captured}
     print(json.dumps(report, indent=1))
     if args.report:
         with open(args.report, "w") as f:
@@ -554,10 +569,19 @@ def main(argv=None):
     ``OfflineInference`` harness instead of the engine."""
     ap = _parser()
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
-    if args.mode != "sim" and args.inject_wire_corrupt:
-        ap.error(f"--mode {args.mode} drives the wall-clock harness; "
-                 f"drop --inject-wire-corrupt")
+    if args.warm_restart and (args.page_size is None or not args.rns_verify
+                              or not args.prefix_share):
+        ap.error("--warm-restart needs --page-size, --rns-verify, and "
+                 "prefix sharing (the persisted state IS the retained "
+                 "pages plus their RRNS fingerprints)")
+    if args.mode != "sim":
+        bad = [f for f, v in (
+            ("--warm-restart", bool(args.warm_restart)),
+            ("--inject-wire-corrupt", args.inject_wire_corrupt),
+        ) if v]
+        if bad:
+            ap.error(f"--mode {args.mode} drives the wall-clock harness; "
+                     f"drop {', '.join(bad)}")
     if args.mode == "loadgen" and (args.trace or args.crypto_requests
                                    or args.crypto_slots):
         ap.error("--mode loadgen synthesizes its own Poisson LLM phases; "
@@ -608,8 +632,16 @@ def main(argv=None):
                  "them out with --families llm)")
 
     params = init_params(cfg, args.seed, args.device)
+    profdir = args.profile_dir or (
+        os.path.dirname(os.path.abspath(args.report)) if args.report
+        else "."
+    )
+    window = ProfilerWindow(args.profile_start_step, args.profile_steps,
+                            profdir, label=f"serve_{args.mode}",
+                            device=args.device)
     if args.mode != "sim":
-        return _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng)
+        return _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng,
+                             window)
     try:
         engine = ContinuousBatcher(
             cfg, params, n_slots=args.slots, cache_len=args.cache_len,
@@ -627,16 +659,32 @@ def main(argv=None):
         print(f"# {cfg.name}: {err}")
         print("# falling back to single-shot sequential serving")
         engine = None
+    warm = None
+    if args.warm_restart and engine is not None:
+        try:
+            warm = dict(engine.load_warm_state(args.warm_restart),
+                        restored=True)
+            print(f"# warm restart: adopted {warm['adopted']} of "
+                  f"{warm['pages_saved']} persisted page(s), "
+                  f"repaired {warm['repaired_pages']}, "
+                  f"dropped {warm['dropped']}")
+        except FileNotFoundError:
+            warm = {"restored": False}  # first run: nothing saved yet
+            print(f"# warm restart: no state under {args.warm_restart} "
+                  f"yet (cold start)")
     t0 = time.time()
     crypto_done = []
-    if engine is not None:
-        counters = simulate(engine, reqs)
-        done = engine.sched.completed
-        if engine.crypto is not None:
-            crypto_done = engine.crypto.completed
-    else:
-        done, counters = simulate_single_shot(cfg, params, reqs, rng,
-                                              args.device)
+    try:
+        if engine is not None:
+            counters = simulate(engine, reqs, on_step=window.step)
+            done = engine.sched.completed
+            if engine.crypto is not None:
+                crypto_done = engine.crypto.completed
+        else:
+            done, counters = simulate_single_shot(cfg, params, reqs, rng,
+                                                  args.device)
+    finally:
+        window.close()
     wall = time.time() - t0
 
     toks = sum(len(r.out) for r in done)
@@ -663,6 +711,9 @@ def main(argv=None):
     if crypto_done:
         report["crypto"] = _crypto_report(
             crypto_done, engine.crypto_ctx, clock_key="latency_ticks")
+    if window.enabled:
+        report["profile"] = {"artifact": window.artifact,
+                             "captured_steps": window.captured}
     if args.rns_verify:
         # wire keys: one rid per retired LLM request on the batched cache,
         # page ids on the paged pool (only retained shared pages outlive
@@ -685,6 +736,13 @@ def main(argv=None):
             rns["injected_repair"] = engine.repair_wire(key)
             rns["injected_reverified"] = engine.wire_ok(key)
         report["rns"] = rns
+
+    if args.warm_restart and engine is not None:
+        engine.drain_completed()  # idle the engine before snapshotting
+        saved = engine.save_warm_state(args.warm_restart)
+        report["warm_restart"] = dict(warm or {}, **saved)
+        print(f"# warm restart: persisted {saved['pages_saved']} retained "
+              f"page(s) to {args.warm_restart}")
 
     print(json.dumps(report, indent=1))
     if args.report:

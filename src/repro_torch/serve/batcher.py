@@ -1004,6 +1004,166 @@ class ContinuousBatcher:
             stats["fingerprints"] = dict(self.wire.stats)
         return stats
 
+    # ---------------------------------------------------- warm restart
+    def _params_sha(self) -> str:
+        import hashlib
+
+        from ..dist.fault import tree_fingerprints
+
+        fps = tree_fingerprints(self.params)
+        joined = "".join(f"{k}={v};" for k, v in sorted(fps.items()))
+        return hashlib.sha256(joined.encode()).hexdigest()[:16]
+
+    def _require_warm(self):
+        if not (self.paged and self.rns_verify
+                and self.sched.registry is not None):
+            raise RuntimeError(
+                "warm restart needs the paged engine with rns_verify=True "
+                "and prefix sharing (the persisted state IS the retained "
+                "prefix pages plus their RRNS fingerprints)")
+
+    def _retained_chain(self) -> list[int]:
+        """Registered retained pages with live codewords, parents before
+        children (restore must adopt in this order)."""
+        reg, al = self.sched.registry, self.sched.alloc
+        out, queue = [], list(reg.children.get(None, ()))
+        while queue:
+            pid = queue.pop(0)
+            if al.is_retained(pid) and pid in self.wire:
+                out.append(pid)
+                queue.extend(reg.children.get(pid, ()))
+        return out
+
+    def _cache_tree(self) -> dict:
+        """The pool as a tree of tensors: the host-side ``len`` count as
+        the reference's 0-d int32 leaf."""
+        return {k: (torch.tensor(v, dtype=torch.int32)
+                    if isinstance(v, int) else v)
+                for k, v in self.cache.items()}
+
+    def save_warm_state(self, state_dir: str) -> dict:
+        """Persist the paged pool for a warm restart (the reference's
+        DESIGN.md §14): the pooled cache leaves, every retained page's RRNS
+        codeword, and the registry chain metadata, written through the
+        RRNS checkpoint format (``train/checkpointer.write_step_dir``) so
+        the saved state is itself single-channel self-healing.  Engine
+        must be idle."""
+        self._require_warm()
+        if self.sched.busy:
+            raise RuntimeError("cannot snapshot warm state mid-flight: "
+                               "drain the engine first")
+        from ..train import checkpointer as ckpt
+
+        reg = self.sched.registry
+        chain = self._retained_chain()
+        pages = []
+        for pid in chain:
+            parent_key, toks = reg.by_pid[pid]
+            pages.append({
+                "pid": pid,
+                "parent": parent_key,
+                "toks": [int(t) for t in toks],
+                "span": int(self._page_span[pid]),
+                "pub": self._page_pub.get(pid),
+            })
+        tree = {"cache": self._cache_tree()}
+        if chain:
+            tree["wire"] = {str(pid): self.wire.get(pid).residues
+                            for pid in chain}
+        extra = {
+            "geometry": {"page_size": self.page_size,
+                         "n_pages": self.n_pages},
+            "params_sha": self._params_sha(),
+            "pages": pages,
+        }
+        ckpt.write_step_dir(state_dir, 0, tree, extra=extra)
+        return {"pages_saved": len(pages)}
+
+    def load_warm_state(self, state_dir: str) -> dict:
+        """Rehydrate a ``save_warm_state`` snapshot into a FRESH engine:
+        restore the pool cache (decoded on the engine's device), then
+        revalidate every persisted page — codeword self-check (``ok``),
+        RRNS repair on failure, and a match against a codeword recomputed
+        from the restored cache content (``_page_codeword``: on the card
+        the codec_encode kernel) — adopting survivors as retained registry
+        chains (``PagedScheduler.adopt_page``) and DROPPING failures (with
+        their descendants, since children chain through the parent's pid).
+        A restarted server thus re-verifies shared prefix pages instead of
+        discarding them.
+
+        Returns the revalidation report; raises FileNotFoundError when
+        nothing restorable exists under ``state_dir``."""
+        self._require_warm()
+        if (self.sched.busy or self.sched.alloc.in_use
+                or self.sched.alloc.retained or self.sched.registry.by_pid):
+            raise RuntimeError("warm state must load into a fresh engine")
+        from ..train import checkpointer as ckpt
+
+        tree, _, extra, ck_rep = ckpt.restore(state_dir, device=self.device)
+        geo = extra["geometry"]
+        if (geo["page_size"] != self.page_size
+                or geo["n_pages"] != self.n_pages):
+            raise ValueError(
+                f"warm state geometry {geo} does not match engine "
+                f"(page_size={self.page_size}, n_pages={self.n_pages})")
+        if extra["params_sha"] != self._params_sha():
+            raise ValueError(
+                "warm state was saved under different params — its KV "
+                "content would be wrong for this model")
+        mine, got = self._cache_tree(), tree["cache"]
+        if sorted(mine) != sorted(got):
+            raise ValueError(
+                f"cache tree mismatch: {set(mine) ^ set(got)}")
+        for n in sorted(mine):
+            if (mine[n].shape != got[n].shape
+                    or mine[n].dtype != got[n].dtype):
+                raise ValueError(
+                    f"cache leaf {n!r}: saved {tuple(got[n].shape)}/"
+                    f"{got[n].dtype} vs engine {tuple(mine[n].shape)}/"
+                    f"{mine[n].dtype}")
+        self.cache = {k: (int(got[k]) if isinstance(v, int) else got[k])
+                      for k, v in self.cache.items()}
+
+        wire_raw = tree.get("wire", {})
+        report = {"pages_saved": len(extra["pages"]), "adopted": 0,
+                  "repaired_pages": 0, "dropped": 0,
+                  "ckpt_repaired_leaves": ck_rep["repaired_leaves"]}
+        for entry in extra["pages"]:
+            pid, parent = int(entry["pid"]), entry["parent"]
+            if parent is not None:
+                parent = int(parent)
+                if parent not in self.sched.registry.by_pid:
+                    report["dropped"] += 1  # parent fell: subtree dies
+                    continue
+            raw = wire_raw.get(str(pid))
+            if raw is None:
+                report["dropped"] += 1
+                continue
+            self.wire.put(pid, self.codec.as_array(
+                raw.to(torch.int32), channel_major=True))
+            self._page_span[pid] = int(entry["span"])
+            repaired_here = False
+            if not self.wire.ok(pid):
+                rep = self.wire.repair(pid)
+                repaired_here = rep["repaired"] > 0
+                if rep["unrecoverable"] or not self.wire.ok(pid):
+                    self.wire.pop(pid)
+                    self._page_span.pop(pid, None)
+                    report["dropped"] += 1
+                    continue
+            if not self.wire.matches(pid, self._page_codeword(pid)):
+                # content/fingerprint disagree: the page is not trustworthy
+                self.wire.pop(pid)
+                self._page_span.pop(pid, None)
+                report["dropped"] += 1
+                continue
+            self.sched.adopt_page(pid, parent, tuple(entry["toks"]))
+            if entry.get("pub") is not None:
+                self._page_pub[pid] = entry["pub"]
+            report["adopted"] += 1
+            report["repaired_pages"] += int(repaired_here)
+        return report
+
     # ------------------------------------------------- RNS integrity path
     def _require_verify(self):
         if not self.rns_verify:

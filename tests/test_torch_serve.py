@@ -849,23 +849,104 @@ def test_serve_cli_mixed_families_in_process(capsys):
     assert engine.crypto is not None and not engine.busy
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--warm-restart", "d"], "warm restart"),
-    (["--profile-steps", "2"], "profiler window"),
+WARM_ARGS = ["--arch", "gemma-2b", "--requests", "4", "--slots", "2",
+             "--cache-len", "64", "--prefill-chunk", "8", "--page-size", "8",
+             "--max-new", "4", "--prompt-mean", "10", "--rns-verify",
+             "--seed", "3"]
+
+
+def test_serve_cli_warm_restart_matches_reference_cli(tmp_path, capsys):
+    """``--warm-restart`` twice in each package (the reference's
+    ``test_serve_driver_warm_restart``): the cold run persists the retained
+    pages, the second adopts them all and dedups against them; both
+    packages' ``warm_restart`` blocks, page counters and tick metrics
+    equal."""
+    from repro.launch.serve import main as r_main
+
+    port, ref = [], []
+    for _ in range(2):
+        port.append(t_serve.main(["--device", "cpu", *WARM_ARGS,
+                                  "--warm-restart", str(tmp_path / "p")])[0])
+        ref.append(r_main([*WARM_ARGS, "--warm-restart",
+                           str(tmp_path / "r")]))
+    cold, warm = port
+    assert cold["warm_restart"] == {"restored": False,
+                                    "pages_saved": cold["warm_restart"][
+                                        "pages_saved"]}
+    assert cold["warm_restart"]["pages_saved"] >= 1
+    assert warm["warm_restart"]["restored"] is True
+    assert warm["warm_restart"]["adopted"] == \
+        cold["warm_restart"]["pages_saved"]
+    assert warm["warm_restart"]["dropped"] == 0
+    assert warm["paging"]["dedup_hits"] >= 1  # restart-surviving prefixes
+    assert warm["rns"]["slots_failed"] == 0
+    for got, want in zip(port, ref):
+        assert got["warm_restart"] == want["warm_restart"]
+        for k in ("steps", "ttft_ticks", "latency_ticks", "rns"):
+            assert got[k] == want[k], k
+        drop = ("fingerprints",)
+        assert {k: v for k, v in got["paging"].items() if k not in drop} \
+            == {k: v for k, v in want["paging"].items() if k not in drop}
+    out = capsys.readouterr().out
+    assert "# warm restart: adopted" in out and "persisted" in out
+
+
+def test_serve_cli_warm_restart_in_a_subprocess(tmp_path):
+    """Twice through ``python -m repro_torch.launch.serve``, with one RRNS
+    channel of the persisted state corrupted between the runs: repaired
+    at the checkpoint layer, every page adopted."""
+    from repro_torch.train import checkpointer as cp
+
+    argv = ["--device", "cpu", *WARM_ARGS, "--warm-restart",
+            str(tmp_path / "w")]
+    first = run_cli("repro_torch.launch.serve", argv, tmp_path)
+    assert first.returncode == 0, first.stderr
+    cp.inject_channel_corruption(str(tmp_path / "w" / "step_0"), leaf=0,
+                                 channels=(1,))
+    second = run_cli("repro_torch.launch.serve", argv, tmp_path)
+    assert second.returncode == 0, second.stderr
+    a = json.loads(first.stdout[first.stdout.index("\n{") + 1:])
+    b = json.loads(second.stdout[second.stdout.index("\n{") + 1:])
+    assert b["warm_restart"]["ckpt_repaired_leaves"] == 1
+    assert b["warm_restart"]["adopted"] == a["warm_restart"]["pages_saved"]
+    assert b["warm_restart"]["dropped"] == 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--warm-restart", "d"],                                 # no pages
+    ["--warm-restart", "d", "--page-size", "8"],             # no verify
+    ["--warm-restart", "d", "--page-size", "8", "--rns-verify",
+     "--no-prefix-share"],
+    ["--mode", "offline", "--page-size", "8", "--rns-verify",
+     "--warm-restart", "d"],
 ])
-def test_serve_cli_refuses_unported_flags(argv, what, capsys):
+def test_serve_cli_warm_restart_preconditions(argv, capsys):
+    """The reference's preconditions, each refused by argparse."""
     with pytest.raises(SystemExit) as e:
         t_serve.main(["--device", "cpu", *argv])
     assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert what in err and "ROADMAP.md, queue 1" in err
+    assert "--warm-restart" in capsys.readouterr().err
 
 
-def test_serve_cli_refusal_in_a_subprocess(tmp_path):
-    out = run_cli("repro_torch.launch.serve",
-                  ["--device", "cpu", "--warm-restart", "d"], tmp_path)
-    assert out.returncode != 0 and "ROADMAP.md" in out.stderr
-    assert out.stdout == ""
+@pytest.mark.parametrize("mode", ["sim", "offline"])
+def test_serve_cli_profiler_window(tmp_path, mode):
+    """``--profile-*`` (the reference's ``test_serve_driver_profiler_window``):
+    the window captures its steps (decode ticks in sim, loop iterations
+    offline) into one non-empty Chrome trace under ``profile_serve_*``."""
+    report, _ = t_serve.main([
+        "--device", "cpu", "--mode", mode, "--arch", "gemma-2b",
+        "--requests", "2", "--slots", "2", "--cache-len", "32",
+        "--prefill-chunk", "8", "--max-new", "8", "--prompt-mean", "6",
+        "--profile-start-step", "1", "--profile-steps", "2",
+        "--profile-dir", str(tmp_path)])
+    prof = report["profile"]
+    assert prof["captured_steps"] == 2
+    assert prof["artifact"] == str(tmp_path / f"profile_serve_{mode}")
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(prof["artifact"])
+              for f in fs]
+    assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    with open(traces[0]) as f:
+        assert json.load(f)["traceEvents"]
 
 
 def test_scheduler_and_serve_step_doctests():

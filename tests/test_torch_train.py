@@ -303,3 +303,48 @@ def test_rns_gradient_training_example():
     assert out["drift"] < rns_gradient_training.MAX_DRIFT
     assert len(out["l_rns"]) == len(out["l_fp"]) == rns_gradient_training.STEPS
     assert out["l_rns"][-1] < out["l_rns"][0] - 1.0
+
+
+def test_cli_profiler_window(tmp_path, capsys):
+    """``--profile-*`` (the reference's
+    ``test_train_driver_profiler_window``): steps 1 and 2 captured into
+    one non-empty Chrome trace under ``profile_train``."""
+    from repro_torch.launch.train import main as train_main
+
+    train_main(cli("--steps", "4", "--profile-start-step", "1",
+                   "--profile-steps", "2", "--profile-dir", str(tmp_path)))
+    out = capsys.readouterr().out
+    assert f"[profile] captured 2 step(s) under {tmp_path}/profile_train" \
+        in out
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path)
+              for f in fs]
+    assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    with open(traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert any(n and n.startswith("aten::") for n in names)
+
+
+def test_cli_checkpoint_lines_and_summary(tmp_path, capsys):
+    """``--ckpt-dir``: the reference's ``[ckpt]`` line, one async save a
+    ``--save-every`` steps in the summary's ``ckpt_saves``; resumed, the
+    ``[resume]`` line and ``start_step``, the summary still the last
+    line."""
+    from repro_torch.launch.train import main as train_main
+
+    ck = str(tmp_path / "ck")
+    _, first = train_main(cli("--steps", "4", "--save-every", "2",
+                              "--ckpt-dir", ck))
+    out = capsys.readouterr().out
+    assert f"[ckpt] policy '2', keep all, async RRNS-coded saves under " \
+        f"{ck}" in out
+    assert [s["step"] for s in first["ckpt_saves"]] == [2, 4]
+    assert all(s["bytes"] > 0 and s["snapshot_ms"] >= 0
+               for s in first["ckpt_saves"])
+    _, second = train_main(cli("--steps", "5", "--ckpt-dir", ck,
+                               "--ckpt-policy", "1", "--ckpt-keep", "2"))
+    out = capsys.readouterr().out
+    assert "[resume] restored step 4:" in out
+    assert "[ckpt] policy '1', keep 2," in out
+    assert out.strip().splitlines()[-1] == json.dumps(second)
+    assert second["start_step"] == 4 and len(second["losses"]) == 1
+    assert sorted(os.listdir(ck)) == ["step_4", "step_5"]
