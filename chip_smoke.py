@@ -84,6 +84,25 @@ prints one JSON object per line:
                save in flight beside run U's and 5b's median), the
                restore's read, decode, sha and repair seconds, peak host
                RSS and device memory;
+5f. mesh     — slice 10, sharding on a (1, 1) DeviceMesh over one NCCL
+               rank (``launch.mesh.make_host_mesh``): (a) gemma3-1b at full
+               width and depth, parameters, ZeRO-1 moments and batch placed
+               by ``dist.sharding``'s spec trees, gradients pinned, 2 fp32
+               and 2 codec steps (the wire summed over the mesh's "data"
+               group), each step's parameters, moments and loss bit-equal
+               to the same step with no mesh, the first codec step's encode
+               and decode bit for bit against their plain versions, one
+               launch of each a codec step, step ms both ways; (b) the
+               paged engine (pages of 512, ``--rns-verify``) on 4 requests
+               behind the 1,024-token prefix, 16 new tokens, with
+               ``mesh=``: tokens, verify log and the whole pool bit-equal
+               to the engine without, decode-step ms both ways; (c) within
+               5e, before its directory goes: ``restore(shardings=)`` of
+               the rrns-v1 step under the parameter and ZeRO-1 specs,
+               bit-equal to its ``device=`` restore, seconds of each; (d)
+               ``launch.dryrun`` of gemma3-1b's train_4k cell on the
+               (16, 16) production mesh over a fake group, in a
+               subprocess: per-device bytes beside the card's memory;
 6. crypto    — slice 3, the RNS crypto lane at RSA-2048 width.  Parity:
                the Montgomery product and ladder-bit kernels against their
                plain versions, bit for bit on every channel, over n_limbs in
@@ -376,6 +395,20 @@ CKPT_CHANNELS = 5          # 3 base + 2 redundant residues per uint32 limb
 E2E_DIR = os.path.join(CKPT_DIR, "train_e2e")
 WARM_DIR = os.path.join(CKPT_DIR, "warm")
 WARM_SHARED, WARM_MAX_NEW = 4, 16
+# Slice 10, sharding (phase 5f): a (data 1, model 1) mesh over one NCCL
+# rank on the card (make_host_mesh).  (a) gemma3-1b at full width and
+# depth, batch 2 x seq 1024, placed by the spec trees (ZeRO-1 moments,
+# gradients pinned): MESH_FP32_STEPS fp32 then MESH_CODEC_STEPS codec
+# steps, each beside the same step with no mesh; (b) phase 6g's paged
+# engine on WARM_SHARED requests behind the prefix, with and without
+# ``mesh=``; (c) inside 5e, its rrns-v1 step restored onto the mesh; (d)
+# the dry run of gemma3-1b's train_4k cell on the (16, 16) mesh over a
+# fake group, in a process of its own.
+MESH_ARCH = "gemma3-1b"
+MESH_BATCH, MESH_SEQ = 2, 1024
+MESH_FP32_STEPS, MESH_CODEC_STEPS = 2, 2
+MESH_DRYRUN = ("--arch", "gemma3-1b", "--shape", "train_4k", "--mesh",
+               "single")
 WARM_ARGS = ("--page-size", "512", "--rns-verify")
 
 # Slice 3, the crypto lane at RSA-2048 width: CryptoContext(n_limbs=138,
@@ -821,11 +854,13 @@ def oracle(codec, q, denom: float):
 
 
 def bits_equal(a, b) -> bool:
-    """Bitwise equality of two f32 tensors (-0.0 and NaN included)."""
+    """Bitwise equality of two tensors of one dtype and shape (-0.0 and
+    NaN included)."""
     import torch
 
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
 
 
 def launch_counts(ops) -> dict:
@@ -1571,6 +1606,8 @@ def ckpt_main_path(dev, max_err, fp32_step_ms) -> dict:
                             "1"), args=TRAIN_ARGS, layers=CKPT_LAYERS,
                            phase="ckpt")
         rss_resume = host_rss_peak()
+        on_mesh = mesh_restore(dev, os.path.join(CKPT_DIR,
+                                                 f"step_{CKPT_SAVED_STEP}"))
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     printed, r = resume["printed"], resume["summary"]
@@ -1616,6 +1653,7 @@ def ckpt_main_path(dev, max_err, fp32_step_ms) -> dict:
         "repaired_leaves": rest["repaired_leaves"],
         "repaired_elements": rest["repaired_elements"],
         "params_equal_uninterrupted": True,
+        "mesh_restore": on_mesh,
         "max_memory_allocated": {
             "uninterrupted": whole["summary"]["max_memory_allocated"],
             "save": s["max_memory_allocated"],
@@ -1626,6 +1664,304 @@ def ckpt_main_path(dev, max_err, fp32_step_ms) -> dict:
                                + Counter(save["launches"])
                                + Counter(resume["launches"]))),
     }
+
+
+# --------------------------------------------------- slice 10: the mesh
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_restore(dev, step_dir: str) -> dict:
+    """Phase 5f (c), inside 5e: its rrns-v1 step restored twice — onto one
+    device (``device=``) and onto a (1, 1) mesh (``shardings=``: the
+    parameter specs, the ZeRO-1 specs for the moments, the step
+    replicated) — leaf by leaf bit-equal, with the seconds of each."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import abstract_params
+    from repro_torch.train import adamw_init
+    from repro_torch.train import checkpointer as ckpt
+
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=CKPT_LAYERS)
+    pa = abstract_params(cfg)
+    tree = {"params": pa, "opt": adamw_init(pa)}
+    mesh = make_host_mesh(dev.type)
+    try:
+        ps = sh.param_specs(pa, mesh)
+        zs = sh.opt_state_specs(pa, ps, mesh, zero1=cfg.zero1)
+        shard = {"params": sh.named_shardings(ps, mesh),
+                 "opt": {"m": sh.named_shardings(zs, mesh),
+                         "v": sh.named_shardings(zs, mesh),
+                         "step": sh.named_shardings(sh.PartitionSpec(),
+                                                    mesh)}}
+        base = os.path.dirname(step_dir)
+        step = int(os.path.basename(step_dir).split("_")[1])
+        times = {}
+        sync(dev)
+        t0 = time.perf_counter()
+        plain, _, _, rep = ckpt.restore(base, tree, step=step, device=dev)
+        sync(dev)
+        times["device_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed, _, _, rep_m = ckpt.restore(base, tree, shard, step=step)
+        sync(dev)
+        times["shardings_s"] = time.perf_counter() - t0
+        leaves = 0
+        for (name, a), b, s in zip(_named(plain), _leaves(placed),
+                                   _leaves(shard)):
+            require(tuple(b.placements) == tuple(s.placements)
+                    and bits_equal(a, b.to_local()),
+                    f"mesh restore: {name} differs from the device= restore")
+            leaves += 1
+        require(rep_m["repaired_leaves"] == rep["repaired_leaves"],
+                f"mesh restore: repair reports {rep_m} / {rep}")
+        del plain, placed
+    finally:
+        dist.destroy_process_group()
+    free_card()
+    return {"leaves": leaves, "repaired_leaves": rep_m["repaired_leaves"],
+            "bit_equal": True, **times}
+
+
+def mesh_train(dev, mesh, max_err) -> dict:
+    """Phase 5f (a): MESH_FP32_STEPS fp32 then MESH_CODEC_STEPS codec steps
+    of gemma3-1b at full width and depth on ``mesh`` and with no mesh, in
+    lockstep from the same seed: after every step the parameters, moments
+    and loss are bit-equal.  The first codec step on the mesh records the
+    gradients it encodes, its wire, the summed wire and the decode, which
+    are held against the plain versions (a one-rank group's sum leaves
+    the wire as it was encoded)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import _tree
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist.grad_codec import GradCodec
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, adamw_init
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config(MESH_ARCH)
+    params = init_params(cfg, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batches = [{"tokens": torch.randint(0, cfg.vocab,
+                                        (MESH_BATCH, MESH_SEQ + 1),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)}
+               for _ in range(MESH_FP32_STEPS + MESH_CODEC_STEPS)]
+    ps = sh.param_specs(params, mesh)
+    zs = sh.opt_state_specs(params, ps, mesh, zero1=cfg.zero1)
+    grad_sh = sh.named_shardings(ps, mesh)
+    place = lambda tree, specs: _tree.tree_map(
+        sh.place_host, tree, sh.named_shardings(specs, mesh))
+    st = adamw_init(params)
+    state = {"plain": (params, st),
+             "mesh": (place(params, ps),
+                      {"m": place(st["m"], zs), "v": place(st["v"], zs),
+                       "step": st["step"]})}
+    codec = GradCodec.make(world=1)
+    opt_cfg = AdamWConfig()
+    fns = {
+        ("plain", False): TS.make_train_step(cfg, opt_cfg),
+        ("mesh", False): TS.make_train_step(cfg, opt_cfg, mesh=mesh,
+                                            grad_shardings=grad_sh),
+        ("plain", True): TS.make_train_step(cfg, opt_cfg, rns_codec=codec,
+                                            group=dist.group.WORLD),
+        ("mesh", True): TS.make_train_step(cfg, opt_cfg, mesh=mesh,
+                                           grad_shardings=grad_sh,
+                                           rns_codec=codec),
+    }
+    pack, decode = TS.tree_pack_rns, TS.tree_decode
+    row = {}
+
+    # the checks run inside the step, as the buffers appear: holding them
+    # to its end would add 8 GB to a step that peaks near the card's size
+    def pack_probe(c, grads):
+        wire, meta = pack(c, grads)
+        row["encode_checked"] = check_train_encode(c, grads, wire, max_err)
+        return wire, meta
+
+    def decode_probe(c, summed, meta, denom=1.0):
+        out = decode(c, summed, meta, denom=denom)
+        row["decode_checked"] = check_train_decode(c, summed, out, denom,
+                                                   max_err)
+        return out
+
+    rows = []
+    for i, batch in enumerate(batches):
+        codec_step = i >= MESH_FP32_STEPS
+        if i == MESH_FP32_STEPS:
+            free_card()
+        row = {"step": i, "codec": codec_step}   # the probes write here
+        for side in ("plain", "mesh"):
+            b = (batch if side == "plain" else
+                 place(batch, sh.batch_specs(batch, mesh)))
+            probe = side == "mesh" and i == MESH_FP32_STEPS
+            if probe:
+                TS.tree_pack_rns, TS.tree_decode = pack_probe, decode_probe
+            try:
+                sync(dev)
+                before, t0 = launch_counts(ops), time.perf_counter()
+                p, o, m = fns[(side, codec_step)](*state[side], b)
+                sync(dev)
+                row[f"{side}_ms"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                TS.tree_pack_rns, TS.tree_decode = pack, decode
+            after = launch_counts(ops)
+            row[f"{side}_launches"] = {k: after[k] - before[k]
+                                       for k in ("codec_encode",
+                                                 "codec_decode")}
+            row[f"{side}_loss"] = float(m["loss"])
+            state[side] = (p, o)
+        want = {"codec_encode": int(codec_step),
+                "codec_decode": int(codec_step)}
+        require(row["plain_launches"] == want == row["mesh_launches"],
+                f"mesh train: step {i} launches {row}")
+        require(row["plain_loss"] == row["mesh_loss"],
+                f"mesh train: step {i} loss {row}")
+        for (name, a), b in zip(_named(state["plain"]),
+                                _leaves(state["mesh"])):
+            require(bits_equal(a, b.to_local() if hasattr(b, "to_local")
+                              else b),
+                    f"mesh train: step {i}, {name} differs from no mesh")
+        rows.append(row)
+        emit({"phase": "mesh", "step": "train", **row})
+    placements = str(state["mesh"][1]["m"]["embed"].placements)
+    del state, fns, params
+    free_card()
+    return {"steps": rows, "zero1_m_placements": placements,
+            "bit_equal": True}
+
+
+def mesh_serve(dev, mesh) -> dict:
+    """Phase 5f (b): the paged engine on WARM_SHARED requests behind the
+    1,024-token prefix, WARM_MAX_NEW new tokens, with and without
+    ``mesh=``: tokens, verify log and the whole pool bit-equal, each
+    decode step timed (CUDA-synchronized host ms)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.serve.scheduler import Request
+
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "mesh_trace.jsonl")
+    reqs = paged_trace(path, PAGED_ENGINE, shared=WARM_SHARED, bare=0,
+                       max_new=WARM_MAX_NEW)
+    cfg = get_config(MESH_ARCH)
+    params = init_params(cfg, 0, dev)
+    out = {}
+    for side, m in (("plain", None), ("mesh", mesh)):
+        eng = ContinuousBatcher(cfg, params, n_slots=8, cache_len=2048,
+                                prefill_chunk=256, page_size=512,
+                                rns_verify=True, mesh=m)
+        step, times = eng._decode_fn, []
+
+        def timed(*args, step=step, times=times):
+            sync(dev)
+            t0 = time.perf_counter()
+            res = step(*args)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        eng._decode_fn = timed
+        for r in reqs:
+            eng.submit(Request(rid=r["rid"], prompt=r["prompt"],
+                               max_new=r["max_new"]))
+        t0 = time.perf_counter()
+        done = eng.run_to_completion()
+        out[side] = {
+            "seconds": time.perf_counter() - t0,
+            "tokens": sorted((r.rid, list(r.out)) for r in done),
+            "verify_log": dict(eng.verify_log),
+            "pool": {k: (v.full_tensor() if hasattr(v, "full_tensor")
+                         else v) for k, v in eng.cache.items()
+                     if isinstance(v, torch.Tensor)},
+            "decode_ms_median": statistics.median(times),
+            "decode_steps": len(times),
+        }
+        del eng
+    a, b = out["plain"], out["mesh"]
+    require(a["tokens"] == b["tokens"] and len(a["tokens"]) == WARM_SHARED,
+            "mesh serve: tokens differ from the engine without a mesh")
+    require(a["verify_log"] == b["verify_log"]
+            and all(a["verify_log"].values()),
+            f"mesh serve: verify logs {a['verify_log']} / {b['verify_log']}")
+    for k in a["pool"]:
+        require(bits_equal(a["pool"][k], b["pool"][k]),
+                f"mesh serve: pool leaf {k} differs")
+    res = {"requests": len(reqs), "tokens_equal": True, "pool_equal": True,
+           **{f"{s}_{k}": out[s][k] for s in out
+              for k in ("seconds", "decode_ms_median", "decode_steps")}}
+    del out, params
+    free_card()
+    return res
+
+
+def mesh_dryrun() -> dict:
+    """Phase 5f (d): ``launch.dryrun`` of gemma3-1b's train_4k cell on the
+    (16, 16) production mesh over a fake group, in a process of its own
+    (the fake group must be its only one); its record's memory, roofline
+    and collectives."""
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *MESH_DRYRUN,
+         "--out", out_dir], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"mesh dry run failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    with open(os.path.join(out_dir,
+                           "gemma3-1b__train_4k__single.json")) as f:
+        rec = json.load(f)
+    return {"seconds": time.perf_counter() - t0, "devices": rec["devices"],
+            "memory": rec["memory"], "roofline": rec["roofline"],
+            "collectives": rec["collectives"],
+            "useful_flops_ratio": rec["useful_flops_ratio"],
+            "run_s": rec["run_s"]}
+
+
+def mesh_main_path(dev, max_err) -> dict:
+    """Phase 5f (a), (b) and (d) on one (1, 1) mesh over a one-rank NCCL
+    group, made and torn down here."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_start = time.perf_counter()
+    before = launch_counts(ops)
+    mesh = make_host_mesh(dev.type)
+    try:
+        # NCCL makes a communicator's buffers at its first collective:
+        # make both now, before the training state fills the card
+        one = torch.zeros(1, device=dev)
+        dist.all_reduce(one)
+        dist.all_reduce(one, group=mesh.get_group("data"))
+        train = mesh_train(dev, mesh, max_err)
+        serve = mesh_serve(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    after = launch_counts(ops)
+    dry = mesh_dryrun()
+    return {"seconds": time.perf_counter() - t_start, "train": train,
+            "serve": serve, "dryrun": dry,
+            "launches": {k: after[k] - before[k] for k in after}}
 
 
 # ------------------------------------------------ slice 3: the crypto lane
@@ -3453,6 +3789,29 @@ def main() -> int:
           f"repaired_leaves {ck['repaired_leaves']}, resumed params equal "
           f"the uninterrupted run's; train_e2e {e2e['ms_per_step']:.1f} ms/step, final loss "
           f"{e2e['final_loss']:.4f}", flush=True)
+
+    # ---------------------------------- 5f. mesh: slice 10's sharding
+    mesh = mesh_main_path(dev, max_err)
+    for k in launches:
+        launches[k] += mesh["launches"][k]
+    emit({"phase": "mesh", "step": "total", **{k: v for k, v in mesh.items()
+                                               if k != "train"},
+          "train_zero1_m_placements": mesh["train"]["zero1_m_placements"],
+          "restore": ck["mesh_restore"], "card": card})
+    tr, sv, dr = mesh["train"]["steps"], mesh["serve"], mesh["dryrun"]
+    mr = ck["mesh_restore"]
+    print(f"mesh: gemma3-1b on a (1, 1) mesh, {card}: step ms mesh / no "
+          f"mesh {[(round(r['mesh_ms'], 1), round(r['plain_ms'], 1)) for r in tr]}"
+          f" (fp32 x{MESH_FP32_STEPS}, codec x{MESH_CODEC_STEPS}; codec "
+          f"launches a step {tr[-1]['mesh_launches']}), parameters "
+          f"bit-equal; paged decode step {sv['mesh_decode_ms_median']:.2f} "
+          f"ms with mesh= against {sv['plain_decode_ms_median']:.2f} ms, "
+          f"tokens and pool equal; restore onto the mesh "
+          f"{mr['shardings_s']:.1f} s against {mr['device_s']:.1f} s, "
+          f"bit-equal; dry run train_4k on (16, 16): "
+          f"{dr['memory']['per_device_bytes']} bytes a device, fits "
+          f"{dr['memory']['fits_hbm']}, in {mesh['seconds']:.1f} s",
+          flush=True)
 
     # ------------------------------------- 6. crypto: slice 3's main path
     t0 = time.perf_counter()

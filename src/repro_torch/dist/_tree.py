@@ -1,9 +1,10 @@
 """Flatten and rebuild nested containers of tensors in JAX's leaf order.
 
 The port's pytrees are plain dicts, lists and tuples with tensors (or any
-other object) at the leaves; ``None`` is an empty subtree.  The order of
-the leaves is the reference's (``jax.tree_util``): dict entries by sorted
-key, list and tuple entries by position.  The bucketed gradient transport
+other object) at the leaves; ``None`` is an empty subtree, and a tuple
+whose class sets ``_tree_leaf`` (``sharding.PartitionSpec``) is a leaf.
+The order of the leaves is the reference's (``jax.tree_util``): dict
+entries by sorted key, list and tuple entries by position.  The bucketed gradient transport
 lays its wire buffer out in that order, and the checkpoint fingerprints
 name leaves the reference's way (``"layers/attn/wq"``, ``"opt/[0]"``), so
 buffers and manifests agree between the two packages.
@@ -31,7 +32,8 @@ def _walk(tree, path, out):
         keys = sorted(tree)
         return (dict, tuple(keys),
                 tuple(_walk(tree[k], path + (str(k),), out) for k in keys))
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not getattr(tree, "_tree_leaf",
+                                                       False):
         return (type(tree), None,
                 tuple(_walk(v, path + (f"[{i}]",), out)
                       for i, v in enumerate(tree)))

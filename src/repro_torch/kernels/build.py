@@ -23,6 +23,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["build", "load", "check", "pointers", "view_args", "operands",
            "stream", "device_guard", "sm_count"]
@@ -135,11 +136,20 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def refuse_dtensor(what: str, t) -> None:
+    """A kernel reads raw device memory: a DTensor's storage is not its
+    global tensor, so its local shard (``to_local()``) must be passed."""
+    if isinstance(t, DTensor):
+        raise TypeError(f"{what}: got a DTensor; the kernels take plain "
+                        "tensors, pass its local shard (t.to_local())")
+
+
 def pointers(what: str, *tensors, dtype=torch.int32) -> list[int]:
     """Device pointers of a kernel's operands, after checking that they are
     contiguous tensors of ``dtype`` on one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
+        refuse_dtensor(what, t)
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{what}: operands must share one CUDA device, "
                              f"got {t.device} and {dev}")
@@ -152,6 +162,7 @@ def pointers(what: str, *tensors, dtype=torch.int32) -> list[int]:
 def view_args(t) -> list[int]:
     """``t``'s address and its element strides, as the column kernels take
     an operand that they read where it lies (no copy)."""
+    refuse_dtensor("view_args", t)
     return [t.data_ptr(), *t.stride()]
 
 

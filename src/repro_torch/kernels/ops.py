@@ -33,6 +33,7 @@ import torch
 
 from ..core.array import RnsArray
 from ..core.base import RNSBase
+from . import build
 from .codec_decode import codec_decode_kernel_call, codec_decode_plain
 from .codec_encode import codec_encode_kernel_call, codec_encode_plain
 from .modmul import modmul_kernel_call, modmul_plain
@@ -47,7 +48,9 @@ __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
 
 
 def _on_card(t) -> bool:
-    """True for a CUDA tensor (kernel), False for a CPU one (plain)."""
+    """True for a CUDA tensor (kernel), False for a CPU one (plain); a
+    DTensor raises (``build.refuse_dtensor``)."""
+    build.refuse_dtensor("RNS kernels", t)
     if t.device.type in ("cuda", "cpu"):
         return t.device.type == "cuda"
     raise ValueError(f"RNS kernels run on CUDA or CPU tensors, not {t.device}")

@@ -1,3 +1,5 @@
 """Command-line entry points: ``train`` (the training driver, with the RNS
-gradient all-reduce) and ``serve`` (the crypto family of the serve CLI);
-the rest of serving comes with its slice."""
+gradient all-reduce), ``serve`` (the serve CLI) and ``dryrun`` (one step
+of each (arch, shape, mesh) cell on ``meta`` DTensors over a fake process
+group, with ``costs`` and ``roofline_report``); ``mesh`` builds the
+device meshes and ``profiling`` the profiler window."""

@@ -28,7 +28,7 @@ class ProfilerWindow:
     """
 
     def __init__(self, start: int, n: int, outdir: str, label: str = "run",
-                 device="cpu"):
+                 *, device):
         self.enabled = start >= 0 and n >= 1
         self.start, self.n = int(start), int(n)
         self.logdir = os.path.join(outdir, f"profile_{label}")

@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..dist.act_sharding import constrain
 from .layers import init_linear, rope
 
 __all__ = ["init_attn", "attention", "attn_forward", "decode_attention",
@@ -60,9 +61,14 @@ def init_attn(gen, d, heads, kv, hd, dtype, device, lead=()):
 def attention(q, k, v, *, causal: bool = True, window=None):
     """q: (b, sq, h, hd); k, v: (b, skv, g, hd), h = g*r -> (b, sq, h, hd).
 
-    ``window``: None for no sliding window, else W: attend to (i-W, i]."""
+    ``window``: None for no sliding window, else W: attend to (i-W, i].
+    On a mesh whose split of q's heads the KV groups cannot follow (8 KV
+    heads on a 16-way axis) each KV head is repeated for its queries
+    first (``_groups_for``)."""
     b, sq, h, hd = q.shape
     _, skv, g, _ = k.shape
+    k, v = _groups_for(q, k, v)
+    g = k.shape[2]
     r = h // g
     f32 = torch.float32
     qs = q * hd ** -0.5                                  # in q's dtype
@@ -84,6 +90,22 @@ def attention(q, k, v, *, causal: bool = True, window=None):
     acc = p.to(v.dtype).to(f32) @ vg                     # (b, g, r, sq, hd)
     out = acc / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _groups_for(q, k, v, *scales):
+    """k, v (.., g, hd) (and per-group ``scales`` (b, g)) as the queries'
+    grouping can take them: as they are, or, when q is a DTensor split
+    along its heads over more ways than the g groups divide, each KV head
+    repeated for its queries (one group a head: the same products)."""
+    g, ways = k.shape[2], 1
+    for dim, pl in enumerate(getattr(q, "placements", ())):
+        if pl.is_shard(2):
+            ways *= q.device_mesh.size(dim)
+    if g % ways == 0:
+        return (k, v, *scales)
+    r = q.shape[2] // g
+    return (k.repeat_interleave(r, dim=2), v.repeat_interleave(r, dim=2),
+            *(s.repeat_interleave(r, dim=1) for s in scales))
 
 
 def _project(p, x, heads, kv, hd, src=None):
@@ -114,11 +136,17 @@ def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
     With ``return_kv`` also the keys and the values, (b, s, kv, hd) each:
     what a prefill writes into the cache."""
     q, k, v = _project(p, x, heads, kv, hd, src=enc)
+    # heads claim 'model' when divisible; otherwise the batch spreads over
+    # data AND model (batch-parallel attention)
+    q = constrain(q, "?batch_plus", None, "heads", None)
+    k = constrain(k, "?batch_plus", None, "kv", None)
+    v = constrain(v, "?batch_plus", None, "kv", None)
     q = rope(q, positions, theta)
     if enc is None:
         k = rope(k, positions, theta)
-    out = _out(p, attention(q, k, v, causal=causal and enc is None,
-                            window=window))
+    o = attention(q, k, v, causal=causal and enc is None, window=window)
+    o = constrain(o, "?batch_plus", None, "heads", None)
+    out = constrain(_out(p, o), "batch", None, None)
     return (out, (k, v)) if return_kv else out
 
 
@@ -137,6 +165,11 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=None,
     int8 caches pass kscale/vscale (b, g): q stays in its dtype, the cache
     is cast to it, and each scale multiplies after its contraction.
     """
+    if kscale is not None:
+        k_cache, v_cache, kscale, vscale = _groups_for(q, k_cache, v_cache,
+                                                       kscale, vscale)
+    else:
+        k_cache, v_cache = _groups_for(q, k_cache, v_cache)
     b, S, g, hd = k_cache.shape
     sq, h = q.shape[1], q.shape[2]
     r = h // g
@@ -172,6 +205,7 @@ def decode_attention_ring(q, k_cache, v_cache, pos: int):
     just written at slot pos mod W.  A slot holds logical position
     pos - ((pos - slot) mod W) (floor mod, as ``jnp.mod``); it is valid
     when that position is >= 0."""
+    k_cache, v_cache = _groups_for(q, k_cache, v_cache)
     b, W, g, hd = k_cache.shape
     h = q.shape[2]
     r = h // g

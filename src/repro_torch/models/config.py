@@ -7,8 +7,10 @@ backbone, stub audio frontend), vlm (LM backbone + stub patch embeddings).
 The port runs all six (``models.model``).
 
 Every field of the reference's dataclass is kept, so the registry's configs
-and their ``smoke()`` reductions are the same values in both packages.  The
-port does not act on these yet: ``seq_parallel`` and ``zero1`` (sharding),
+and their ``smoke()`` reductions are the same values in both packages.
+``seq_parallel`` places the residual stream on a mesh
+(``transformer._seq_parallel``) and ``zero1`` the optimizer moments
+(``dist.sharding.opt_state_specs``).  The port does not act on two:
 ``attn_impl`` (one attention route, ``models/attention.py``) and
 ``remat_policy`` (``remat`` recomputes each layer whole, the "nothing"
 policy).

@@ -11,8 +11,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..dist.act_sharding import constrain, current_mesh, use_mesh
 
 __all__ = [
+    "remat",
+    "sharded_last",
     "rms_norm",
     "rope",
     "gated_mlp",
@@ -34,9 +39,16 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 
 def rope(x, positions, theta: float = 10000.0):
-    """Rotary embedding over halves.  x: (..., s, h, hd), positions: (..., s)."""
+    """Rotary embedding over halves.  x: (..., s, h, hd), positions: (..., s).
+
+    Positions expanded over the batch (stride 0: every row the same) give
+    one row of tables that broadcasts against x: the same values, without
+    a (b, s, hd) table per call (on a mesh, one per device)."""
     hd = x.shape[-1]
     half = hd // 2
+    if (positions.ndim > 1 and positions.shape[0] > 1
+            and not positions.stride(0)):
+        positions = positions[:1]
     f32 = dict(dtype=torch.float32, device=x.device)
     freqs = torch.exp(
         -torch.log(torch.tensor(theta, **f32)) * torch.arange(half, **f32)
@@ -49,14 +61,43 @@ def rope(x, positions, theta: float = 10000.0):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward pass.  The recompute may
+    run on the autograd engine's device thread, which does not see the
+    forward's context, so on a mesh it re-enters the forward's mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def on_mesh(*a):
+        with use_mesh(mesh):
+            return fn(*a)
+
+    return checkpoint(on_mesh, *args, use_reentrant=False)
+
+
+def sharded_last(w) -> bool:
+    """Is ``w`` a DTensor split along its last axis?  Then (2, ff) cannot
+    be flattened into one axis without gathering ff first."""
+    return any(p.is_shard(w.ndim - 1) for p in getattr(w, "placements", ()))
+
+
 def gated_mlp(x, wi, wo, act: str):
-    """SwiGLU / GeGLU: wi: (d, 2, ff), wo: (ff, d).  x: (b, s, d)."""
+    """SwiGLU / GeGLU: wi: (d, 2, ff), wo: (ff, d).  x: (b, s, d).  With
+    wi split along ff on a mesh the gate and up products run apart, each
+    column-parallel."""
     dt = x.dtype
     d, _, ff = wi.shape
-    h = (x @ wi.to(dt).reshape(d, 2 * ff)).unflatten(-1, (2, ff))
+    w = wi.to(dt)
+    if sharded_last(w):
+        h = torch.stack([x @ w[:, 0], x @ w[:, 1]], dim=-2)
+    else:
+        h = (x @ w.reshape(d, 2 * ff)).unflatten(-1, (2, ff))
+    h = constrain(h, "batch", None, None, "ff")
     gate, up = h[..., 0, :], h[..., 1, :]
     g = F.gelu(gate, approximate="tanh") if act == "geglu" else F.silu(gate)
-    return (g * up) @ wo.to(dt)
+    return constrain((g * up) @ wo.to(dt), "batch", None, None)
 
 
 # ----------------------------------------------------------------- init
@@ -81,12 +122,24 @@ def init_mlp(gen, d, ff, dtype, device, lead=()):
 
 def embed(tokens, table, dtype):
     """Token embedding with sqrt(d) scaling (gemma convention); the scale is
-    taken in ``dtype`` (in bf16, sqrt(1152) is 34.0)."""
+    taken in ``dtype`` (in bf16, sqrt(1152) is 34.0).  A table split along
+    the vocabulary on a mesh is gathered for the lookup: DTensor's own
+    sharded lookup yields a masked partial sum whose backward some torch
+    versions cannot redistribute."""
     d = table.shape[-1]
     scale = torch.tensor(d, dtype=dtype, device=table.device) ** 0.5
-    return F.embedding(tokens, table.to(dtype)) * scale
+    t = table.to(dtype)
+    if any(p.is_shard() for p in getattr(t, "placements", ())):
+        from torch.distributed.tensor import Replicate
+
+        t = t.redistribute(t.device_mesh, [Replicate()] * len(t.placements))
+    return constrain(F.embedding(tokens, t) * scale, "batch", None, None)
 
 
 def unembed(x, table):
-    """Logits against the (tied) embedding table: (..., d) x (V, d) -> (..., V)."""
-    return x @ table.to(x.dtype).T
+    """Logits against the (tied) embedding table: (..., d) x (V, d) -> (..., V).
+
+    On a mesh the logits stay vocab-sharded."""
+    logits = x @ table.to(x.dtype).T
+    names = ["batch"] + [None] * (logits.ndim - 2) + ["vocab"]
+    return constrain(logits, *names)

@@ -28,12 +28,19 @@ The expert products are the reference's batched products over all E
 experts, the weights cast to the compute dtype per use.  Shared experts run
 densely over every token.  The aux loss is the Switch-style load-balance
 term, in f32, counting every token the call routes.
+
+On a mesh the routing's sorts and ``searchsorted`` have no DTensor rule:
+the block gathers its weights whole and runs as above on each device's
+rows (``local_map``), without expert parallelism, and its aux loss is the
+mean of the rows' shards' (the reference's is over the whole batch; on a
+mesh of one device they are the same).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dist.act_sharding import constrain
 from .layers import gated_mlp, init_linear
 
 __all__ = ["init_moe", "capacity", "route", "dispatch", "combine",
@@ -122,6 +129,8 @@ def combine(out_flat, dest, tok, w, s: int):
 
 def moe_forward(p, cfg, x):
     """x: (b, s, d) -> (y (b, s, d), aux scalar f32)."""
+    if hasattr(x, "placements"):
+        return _moe_on_mesh(p, cfg, x)
     dt = x.dtype
     b, s, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -134,16 +143,44 @@ def moe_forward(p, cfg, x):
     aux = E * torch.sum(frac / K * probs.mean(dim=(0, 1)))
 
     buf, dest, tok, w = dispatch(x, idx, gates, E, C)
+    # buf batch-sharded, expert weights model-sharded: the products below
+    # are where the expert-parallel exchange happens on a mesh.  The
+    # expert-major layouts keep the reference's claims ("batch" on the
+    # data axes, "experts", else "ff", on the model axis).
+    buf = constrain(buf, "batch", "experts", None, None)
     f = cfg.expert_dff
     xe = buf.transpose(0, 1).reshape(E, b * C, d)        # expert-major
     h = torch.bmm(xe, p["wi"].to(dt).reshape(E, d, 2 * f))
-    h = h.view(E, b * C, 2, f)
+    h = constrain(h.view(E, b * C, 2, f), "experts", "batch", None, "ff")
     act = (lambda t: F.gelu(t, approximate="tanh")) if cfg.act == "geglu" \
         else F.silu
     h = act(h[..., 0, :]) * h[..., 1, :]
     out = torch.bmm(h, p["wo"].to(dt))                   # (E, b*C, d)
+    out = constrain(out, "experts", "batch", None)
     out_flat = out.view(E, b, C, d).transpose(0, 1).reshape(b, E * C, d)
     y = combine(out_flat, dest, tok, w, s)
-    if cfg.n_shared:
+    if cfg.n_shared:   # gated_mlp places its hidden (b, s, 2, ff) by "ff"
         y = y + gated_mlp(x, p["shared_wi"], p["shared_wo"], cfg.act)
-    return y, aux
+    return constrain(y, "batch", None, None), aux
+
+
+def _moe_on_mesh(p, cfg, x):
+    """``moe_forward`` of a DTensor x: the weights gathered whole, the block
+    run on each device's shard of the batch rows (module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rows = [q if q.is_shard(0) else Replicate() for q in x.placements]
+    whole = [Replicate()] * mesh.ndim
+    aux_pl = [Partial("avg") if q.is_shard(0) else Replicate() for q in rows]
+    keys = sorted(p)
+
+    def block(xl, *ws):
+        return moe_forward(dict(zip(keys, ws)), cfg, xl)
+
+    return local_map(
+        block, out_placements=(rows, aux_pl),
+        in_placements=(rows, *[whole] * len(keys)), device_mesh=mesh)(
+        x.redistribute(mesh, rows),
+        *[p[k].redistribute(mesh, whole) for k in keys])

@@ -29,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist.act_sharding import constrain
 from .layers import init_linear, init_norm, rms_norm
 
 __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode",
@@ -177,7 +178,7 @@ def mamba2_forward(params, cfg, u, *, initial_state=None):
     x, B, C = torch.split(xBC, [d_in, ds, ds], dim=-1)
 
     f32 = torch.float32
-    x = x.reshape(b, s, h, p).to(f32)
+    x = constrain(x.reshape(b, s, h, p).to(f32), "batch", None, "heads", None)
     dt = _softplus(dtraw.to(f32) + params["dt_bias"])    # (b, s, h)
     A = -torch.exp(params["A_log"])                      # (h,)
     y, S_last = ssd(x, dt, A, B.to(f32), C.to(f32), Q, initial_state)
@@ -186,7 +187,8 @@ def mamba2_forward(params, cfg, u, *, initial_state=None):
     # gated output norm + projection
     y = rms_norm((y * _silu(z.to(f32))).to(dt_), params["norm"],
                  cfg.norm_eps)
-    out = y @ params["out_proj"].to(dt_)
+    y = constrain(y, "batch", None, "dinner")
+    out = constrain(y @ params["out_proj"].to(dt_), "batch", None, None)
     W1 = cfg.ssm_conv - 1
     tail = xBC_raw[:, max(0, s - W1):].contiguous()
     if s < W1:

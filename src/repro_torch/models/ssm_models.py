@@ -23,14 +23,14 @@ over them.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .attention import attn_decode, attn_forward, init_attn
 from .config import ModelConfig
 from .layers import (embed, gated_mlp, init_linear, init_mlp, init_norm,
-                     rms_norm, unembed)
+                     remat as _remat, rms_norm, unembed)
 from .ssm import init_mamba2, mamba2_decode, mamba2_forward
-from .transformer import _attn_kwargs, _dtype, _pad_seq, _pdtype, _unstack
+from .transformer import (_attn_kwargs, _cache_kv, _dtype, _pad_seq, _pdtype,
+                          _unstack)
 
 __all__ = ["init_ssm_stack", "ssm_logits", "ssm_prefill", "ssm_decode",
            "hybrid_logits", "hybrid_prefill", "hybrid_decode"]
@@ -88,8 +88,8 @@ def _mamba_stack(cfg: ModelConfig, stacked, x, *, remat=False):
     """Training forward through the layers of a stacked tree; each layer a
     remat unit with ``remat``."""
     for pl in _unstack(stacked):
-        x = (checkpoint(_mamba_out, cfg, pl, x, use_reentrant=False)
-             if remat else _mamba_out(cfg, pl, x))
+        x = (_remat(_mamba_out, cfg, pl, x) if remat
+             else _mamba_out(cfg, pl, x))
     return x
 
 
@@ -155,6 +155,8 @@ def _shared_attn_fwd(cfg: ModelConfig, shared, x, positions, *,
     res = attn_forward(shared["attn"], h, positions, return_kv=collect_kv,
                        **_attn_kwargs(cfg))
     o, kv = res if collect_kv else (res, None)
+    if collect_kv:
+        kv = _cache_kv(kv)
     x = x + o
     h2 = rms_norm(x, shared["ln2"], cfg.norm_eps)
     x = x + gated_mlp(h2, shared["mlp"]["wi"], shared["mlp"]["wo"], cfg.act)
@@ -177,8 +179,7 @@ def hybrid_logits(cfg: ModelConfig, params, batch):
     x = embed(batch["tokens"], params["embed"], _dtype(cfg))
     positions = _positions(x)
     for gp in _unstack(params["groups"]):
-        x = (checkpoint(_group, cfg, params["shared"], gp, x, positions,
-                        use_reentrant=False)
+        x = (_remat(_group, cfg, params["shared"], gp, x, positions)
              if cfg.remat else _group(cfg, params["shared"], gp, x,
                                       positions))
     if "tail" in params:

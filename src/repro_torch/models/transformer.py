@@ -29,6 +29,10 @@ cache is a paged pool (``serve_step.paged_pool_zeros``: ``k``/``v``
 (``_paged_cache_stack``); ``valid_len=``/``scratch=`` are extend's padded
 write barrier.
 
+On a mesh (``dist.act_sharding.use_mesh``) the parameters are DTensors
+and the activations are placed at the reference's ``constrain`` sites; off
+a mesh those calls return their argument.
+
 The encdec half encodes ``batch["frames"]`` (b, F, d), the stub audio
 frontend's embeddings, with non-causal blocks, and its decoder blocks add a
 cross-attention to those states between the self-attention and the MLP;
@@ -40,13 +44,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..dist import _tree
+from ..dist.act_sharding import constrain
 from .attention import (attn_decode, attn_decode_paged, attn_forward,
                         init_attn, paged_targets, write_positions)
 from .config import ModelConfig
-from .layers import embed, gated_mlp, init_linear, init_mlp, init_norm, rms_norm, unembed
+from .layers import (embed, gated_mlp, init_linear, init_mlp, init_norm,
+                     remat, rms_norm, unembed)
 from .moe import init_moe, moe_forward
 
 __all__ = ["NO_WINDOW", "global_flags", "layer_window", "init_dense_block",
@@ -127,18 +132,34 @@ def _mlp(cfg: ModelConfig, pl, x):
     return x + gated_mlp(h2, pl["mlp"]["wi"], pl["mlp"]["wo"], cfg.act), None
 
 
+def _seq_parallel(cfg: ModelConfig, x):
+    """With ``seq_parallel`` the residual stream lives (batch x seq)-sharded
+    between blocks on a mesh; the q/k/v and MLP placements pull whole
+    sequences back in (the all-gather / reduce-scatter pair of sequence
+    parallelism)."""
+    return constrain(x, "batch", "seq", None) if cfg.seq_parallel else x
+
+
 def _block(cfg: ModelConfig, pl, x, positions, window):
+    x = _seq_parallel(cfg, x)
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     x = x + attn_forward(pl["attn"], h, positions, window=window,
                          **_attn_kwargs(cfg))
     return _mlp(cfg, pl, x)
 
 
+def _cache_kv(kv):
+    """A prefill's collected (k, v), placed as the cache holds them: heads
+    over the model axis when divisible, else the sequence."""
+    return tuple(constrain(t, "batch", "?seq", "kv", None) for t in kv)
+
+
 def _block_kv(cfg: ModelConfig, pl, x, positions, window):
+    x = _seq_parallel(cfg, x)
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     o, kv = attn_forward(pl["attn"], h, positions, window=window,
                          return_kv=True, **_attn_kwargs(cfg))
-    return _mlp(cfg, pl, x + o)[0], kv
+    return _mlp(cfg, pl, x + o)[0], _cache_kv(kv)
 
 
 def _unstack(tree):
@@ -171,8 +192,7 @@ def decoder_stack(cfg: ModelConfig, params, x, positions, *,
             ks.append(k)
             vs.append(v)
         elif cfg.remat:
-            x, a = checkpoint(_block, cfg, pl, x, positions, window,
-                              use_reentrant=False)
+            x, a = remat(_block, cfg, pl, x, positions, window)
         else:
             x, a = _block(cfg, pl, x, positions, window)
         if a is not None:
@@ -462,8 +482,7 @@ def encode(cfg: ModelConfig, params, frames):
     positions = torch.arange(s, device=x.device).expand(b, s)
     for pl in _unstack(params["enc_layers"]):
         if cfg.remat:
-            x = checkpoint(_enc_block, cfg, pl, x, positions,
-                           use_reentrant=False)
+            x = remat(_enc_block, cfg, pl, x, positions)
         else:
             x = _enc_block(cfg, pl, x, positions)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -477,6 +496,8 @@ def _dec_block(cfg: ModelConfig, pl, x, positions, enc, collect_kv=False):
     res = attn_forward(pl["self_attn"], h, positions, return_kv=collect_kv,
                        **akw)
     o, kv = res if collect_kv else (res, None)
+    if collect_kv:
+        kv = _cache_kv(kv)
     x = x + o
     h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
     x = x + attn_forward(pl["cross_attn"], h2, positions, enc=enc, **akw)
@@ -496,8 +517,7 @@ def _dec_stack(cfg: ModelConfig, params, x, positions, enc, *,
             ks.append(k)
             vs.append(v)
         elif cfg.remat:
-            x = checkpoint(_dec_block, cfg, pl, x, positions, enc,
-                           use_reentrant=False)
+            x = remat(_dec_block, cfg, pl, x, positions, enc)
         else:
             x = _dec_block(cfg, pl, x, positions, enc)
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)

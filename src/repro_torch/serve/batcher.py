@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.array import _device
+from ..dist import _tree
 from ..models import decode_step, extend_step
 from .crypto import (CryptoContext, CryptoLane, encode_exponent,
                      make_crypto_fns)
@@ -373,6 +374,19 @@ class ContinuousBatcher:
     prefix_share : admission-time prompt-prefix dedup (paged only).
     crypto_slots, crypto_ctx, crypto_chunk : the crypto lane
         (``CryptoEngine``); 0 slots (default) disables the family.
+    mesh : optional ``DeviceMesh``; the batched cache (or the paged pool)
+        is placed on it by ``dist.sharding.cache_specs`` (``paged_pool=``
+        on the pool), as the reference's ``mesh=`` places it, and is
+        re-placed after a warm-state load.  The engine runs SPMD: every
+        rank runs it on the same requests with the same whole
+        ``params`` (plain tensors) and gets the same tokens and
+        fingerprints.  Each engine function reads the cache gathered whole
+        (``full_tensor``), runs the plain path, and each rank keeps its
+        slice of what was written: DTensor refuses in-place index writes
+        into a sharded axis and any in-place write under
+        ``inference_mode``.  On a (1, 1) mesh the gather and the slice are
+        the stored tensors themselves.  None (default) keeps every tensor
+        plain.
 
     >>> from repro_torch.configs import get_config
     >>> from repro_torch.models import init_params
@@ -394,7 +408,7 @@ class ContinuousBatcher:
                  page_size: int | None = None,
                  n_pages: int | None = None, prefix_share: bool = True,
                  crypto_slots: int = 0, crypto_ctx=None,
-                 crypto_chunk: int = 8):
+                 crypto_chunk: int = 8, mesh=None):
         cfg.validate()
         if cfg.family not in _SUPPORTED:
             raise NotImplementedError(
@@ -428,6 +442,10 @@ class ContinuousBatcher:
                 f"cache_len={cache_len}; valid prefill_chunk values: "
                 f"{divisors}"
             )
+        if mesh is not None and any(hasattr(p, "placements")
+                                    for p in _tree.flatten(params)[0]):
+            raise TypeError("ContinuousBatcher(mesh=) places the cache; "
+                            "pass whole parameters, not DTensors")
         self.cfg, self.params = cfg, params
         self.device = params["embed"].device
         self.prefill_chunk = C = int(prefill_chunk)
@@ -504,6 +522,15 @@ class ContinuousBatcher:
             self.sched = SlotScheduler(n_slots, cache_len)
             self._solo = cache_zeros(cfg, 1, cache_len, self.device)
             self.cache = cache_zeros(cfg, n_slots, cache_len, self.device)
+        self.mesh = mesh
+        on = (lambda fn: fn) if mesh is None else self._on_mesh
+        if mesh is not None:
+            from ..dist.sharding import cache_specs, named_shardings
+
+            self.cache_pspecs = cache_specs(self.cache, mesh,
+                                            paged_pool=self.paged)
+            self._cache_sh = named_shardings(self.cache_pspecs, mesh)
+            self.cache = self._place(self.cache)
 
         # The engine's functions; each keeps one argument signature for
         # the engine's lifetime (fixed shapes; slot ids, positions, page
@@ -515,22 +542,23 @@ class ContinuousBatcher:
             # chunk-grid pads included) and the parking page as a dead
             # scratch; bucketed prefill passes the real tokens and a live
             # scratch page.  Either way one signature per token width.
-            self._extend_fn = Traced(
+            self._extend_fn = Traced(on(
                 lambda p, c, t, pos, idx, pg, valid, scr: extend_step(
                     cfg, p, c, t, pos, logit_index=idx, pages=pg,
-                    page_size=psz, valid_len=valid, scratch=scr))
-            self._decode_fn = Traced(self._decode_paged_impl)
-            self._copy_fn = Traced(self._copy_impl)
+                    page_size=psz, valid_len=valid, scratch=scr)))
+            self._decode_fn = Traced(on(self._decode_paged_impl))
+            self._copy_fn = Traced(on(self._copy_impl))
             self._insert_fn = None
         else:
+            # the extend fills the solo cache, which is never on the mesh
             self._extend_fn = Traced(
                 lambda p, c, t, pos, idx: extend_step(cfg, p, c, t, pos,
                                                       logit_index=idx))
-            self._decode_fn = Traced(self._decode_impl)
-            self._insert_fn = Traced(self._insert_impl)
+            self._decode_fn = Traced(on(self._decode_impl))
+            self._insert_fn = Traced(on(self._insert_impl))
             self._copy_fn = None
-        self._fp_fn = (Traced(self._fp_paged_impl if self.paged
-                              else self._fp_impl)
+        self._fp_fn = (Traced(on(self._fp_paged_impl if self.paged
+                                 else self._fp_impl))
                        if rns_verify else None)
         if rns_verify:
             from ..dist.fault import WireStore
@@ -579,6 +607,51 @@ class ContinuousBatcher:
         """Raw key -> RnsArray mapping of the wire store (rid-keyed on the
         batched cache, page-keyed on the paged pool)."""
         return self.wire.raw
+
+    # ------------------------------------------------------------ the mesh
+    def _place(self, cache: dict) -> dict:
+        """A whole cache placed by ``cache_specs`` (host ints stay)."""
+        from ..dist.sharding import place_host
+
+        return {k: place_host(v, self._cache_sh[k])
+                if isinstance(v, torch.Tensor) else v
+                for k, v in cache.items()}
+
+    def _on_mesh(self, fn):
+        """``fn`` over the engine's placed cache: the cache argument is
+        gathered whole, and a returned cache's writes are kept slice by
+        slice in the placed tensors, which are returned in its place."""
+        from ..dist.sharding import local_slices
+
+        def whole(cache):
+            return {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                    for k, v in cache.items()}
+
+        def keep(new: dict, placed: dict) -> dict:
+            out = dict(new)
+            with torch.inference_mode():
+                for k, d in placed.items():
+                    if not hasattr(d, "full_tensor"):
+                        continue
+                    mine = d.to_local()
+                    part = new[k][local_slices(tuple(new[k].shape),
+                                               d.device_mesh, d.placements)]
+                    if part.data_ptr() != mine.data_ptr():
+                        mine.copy_(part)
+                    out[k] = d
+            return out
+
+        def call(*args):
+            placed = self.cache
+            out = fn(*(whole(a) if a is placed else a for a in args))
+            if isinstance(out, dict):
+                return keep(out, placed)
+            if isinstance(out, tuple):
+                return tuple(keep(o, placed) if isinstance(o, dict) else o
+                             for o in out)
+            return out
+
+        return call
 
     # ------------------------------------------------------ engine functions
     def _decode_impl(self, params, cache, tokens, pos):
@@ -1035,10 +1108,10 @@ class ContinuousBatcher:
         return out
 
     def _cache_tree(self) -> dict:
-        """The pool as a tree of tensors: the host-side ``len`` count as
-        the reference's 0-d int32 leaf."""
-        return {k: (torch.tensor(v, dtype=torch.int32)
-                    if isinstance(v, int) else v)
+        """The pool as a tree of whole tensors: the host-side ``len`` count
+        as the reference's 0-d int32 leaf."""
+        return {k: (torch.tensor(v, dtype=torch.int32) if isinstance(v, int)
+                    else v.full_tensor() if hasattr(v, "full_tensor") else v)
                 for k, v in self.cache.items()}
 
     def save_warm_state(self, state_dir: str) -> dict:
@@ -1123,6 +1196,8 @@ class ContinuousBatcher:
                     f"{mine[n].dtype}")
         self.cache = {k: (int(got[k]) if isinstance(v, int) else got[k])
                       for k, v in self.cache.items()}
+        if self.mesh is not None:
+            self.cache = self._place(self.cache)
 
         wire_raw = tree.get("wire", {})
         report = {"pages_saved": len(extra["pages"]), "adopted": 0,

@@ -208,13 +208,14 @@ class CompletionPump:
 def replica_devices(n: int, devices=None) -> list:
     """One ``torch.device`` per replica.
 
-    ``devices`` defaults to every CUDA card (the CPU when there is none).
-    When the cards divide evenly among ``n`` replicas (at least one each),
-    replica i runs on card i; otherwise every replica runs on the first
-    device — the single-card case, where replicas still exercise the
-    shared-admission protocol and the report counts one chip.  A replica
-    spanning several cards needs sharding, which is not ported (ROADMAP.md,
-    queue 1 item 4), so each replica holds one device.
+    ``devices`` defaults to every CUDA card, and with no card and no
+    ``devices`` it raises: the CPU is used only when the caller names it.
+    When the devices divide evenly among ``n`` replicas (at least one
+    each), replica i runs on device i; otherwise every replica runs on the
+    first device — the single-card case, where replicas still exercise the
+    shared-admission protocol and the report counts one chip.  Each
+    replica holds one device: a replica spanning several cards would be
+    several SPMD ranks, with the shared admission queue crossing processes.
 
     >>> replica_devices(3, [torch.device("cpu")])
     [device(type='cpu'), device(type='cpu'), device(type='cpu')]
@@ -224,8 +225,11 @@ def replica_devices(n: int, devices=None) -> list:
     if n < 1:
         raise ValueError("need >= 1 replica")
     if devices is None:
-        devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
-                   or ["cpu"])
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("replica_devices: no CUDA card; pass "
+                               "devices=[torch.device('cpu')] to run the "
+                               "replicas on the CPU")
     devs = [torch.device(d) for d in devices]
     if not devs:
         raise ValueError("need >= 1 device")

@@ -13,8 +13,9 @@ Leaves are tensors (any device) or numpy arrays in the port's plain trees
 (numpy's ``<V2`` records, which neither package reads back as bf16: the
 legacy format is for f32 training state; ``train/checkpointer.py``'s
 ``rrns-v1`` format holds bf16).  ``restore`` places the leaves on one
-``device``; the reference's elastic reshard onto a mesh (``shardings=``)
-waits for the port's sharding (ROADMAP.md, queue 1, item 4) and raises.
+``device``, or with ``shardings=`` reshards them onto the current mesh: a
+step stores whole host arrays, so a state saved under one mesh (a ZeRO-1
+one included) restores under another.
 
 ``save_async`` returns an ``AsyncSave`` handle: exceptions raised on the
 writer thread are captured and re-raised from ``join()`` — never silently
@@ -45,11 +46,6 @@ from ..dist.fault import (
 
 __all__ = ["save", "save_async", "restore", "latest_step", "find_restorable",
            "AsyncSave", "commit_dir"]
-
-SHARDINGS_PENDING = ("restore(shardings=...) reshards onto a device mesh, "
-                     "which waits for the port's sharding (ROADMAP.md, "
-                     "queue 1, item 4); pass device= to place every leaf "
-                     "on one device")
 
 
 def _flatten(tree):
@@ -97,6 +93,7 @@ def _npy_parts(leaf):
     """(numpy type string, shape, flat uint8 array of the raw bytes) that
     ``np.save`` writes for a leaf — a bf16 tensor as the reference's
     ``ml_dtypes`` array (``<V2`` records)."""
+    _refuse_dtensor(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -191,7 +188,17 @@ class AsyncSave:
         return not self._thread.is_alive()
 
 
+def _refuse_dtensor(leaf) -> None:
+    """A step holds whole leaves, as the reference's host arrays do: a
+    DTensor is gathered (``full_tensor()``, on every rank) and saved from
+    one rank."""
+    if hasattr(leaf, "full_tensor"):
+        raise TypeError("save whole tensors: gather a DTensor with "
+                        "full_tensor() and save from one rank")
+
+
 def _to_host(leaf):
+    _refuse_dtensor(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().clone()
     return np.array(leaf, copy=True)
@@ -219,16 +226,35 @@ def as_tensor(arr, device=None) -> torch.Tensor:
     return t if device is None else t.to(device)
 
 
+def place_leaves(names, flat, shardings, device):
+    """The loaded host leaves ``flat[name]`` in ``names`` order: on
+    ``device``, or with ``shardings`` (a tree of
+    ``dist.sharding.NamedSharding``s in the same leaf order) each one's
+    slice for this rank on the mesh, as a DTensor (``place_host``)."""
+    if shardings is None:
+        return [as_tensor(flat[k], device) for k in names]
+    if device is not None:
+        raise ValueError("restore: pass shardings= or device=, not both")
+    from ..dist.sharding import place_host
+
+    sh = _tree.flatten(shardings)[0]
+    if len(sh) != len(names):
+        raise ValueError(f"restore: {len(sh)} shardings for {len(names)} "
+                         "leaves")
+    host = lambda v: v if isinstance(v, torch.Tensor) else as_tensor(v)
+    return [place_host(host(flat[k]), s) for k, s in zip(names, sh)]
+
+
 def restore(ckpt_dir: str, abstract_tree, shardings=None, *,
             step: int | None = None, device=None):
     """Load + verify a checkpoint: ``(tree, step, extra)``.
 
     ``abstract_tree`` (a tree of tensors, ``meta`` ones included) gives the
     structure; every leaf comes back as a tensor on ``device`` (the CPU
-    when None).  ``shardings`` raises: see the module docstring.
+    when None).  ``shardings``, a matching tree of
+    ``dist.sharding.NamedSharding``s, places each leaf on the current mesh
+    instead: this rank's slice of the host array, wrapped as a DTensor.
     """
-    if shardings is not None:
-        raise NotImplementedError(SHARDINGS_PENDING)
     if step is not None:
         path = os.path.join(ckpt_dir, f"step_{step}")
         manifest, flat = load_step(path)  # FileNotFoundError / IOError
@@ -245,5 +271,5 @@ def restore(ckpt_dir: str, abstract_tree, shardings=None, *,
             "checkpoint tree mismatch: "
             f"{set(names) ^ set(manifest['names'])}"
         )
-    tree = _tree.unflatten(spec, [as_tensor(flat[k], device) for k in names])
+    tree = _tree.unflatten(spec, place_leaves(names, flat, shardings, device))
     return tree, manifest["step"], manifest.get("extra", {})

@@ -38,6 +38,8 @@ the leaf lives on (``restore``'s ``device=`` for the decode), so a leaf of
 any size costs a bounded transient: a full-width training state streams
 from the card to disk, and back, a chunk at a time.  On the card the
 writer's passes run on a stream of their own, beside the training step.
+A restore onto a mesh (``shardings=``) decodes on the mesh's device into
+host leaves, whose slices for this rank then go to the device.
 
 Crash injection for the kill-and-resume harness: set
 ``REPRO_CKPT_CRASH_STEP=<n>`` (and optionally
@@ -66,8 +68,9 @@ from ..core.base import RNSBase
 from ..dist import _tree
 from ..dist.fault import fingerprint_hasher, load_step, repair_packed
 from ..dist.grad_codec import GradCodec
-from .checkpoint import (SHARDINGS_PENDING, _flatten, _write_fsync, as_tensor,
-                         commit_dir, write_npy_header)
+from ..dist.sharding import mesh_device
+from .checkpoint import (_flatten, _refuse_dtensor, _write_fsync, as_tensor,
+                         commit_dir, place_leaves, write_npy_header)
 
 __all__ = [
     "StepInterval", "SavePolicy", "parse_policy",
@@ -216,6 +219,7 @@ def _leaf_bytes(leaf):
     """(dtype name, shape, nbytes, flat uint8 tensor of the raw C-order
     bytes on the leaf's device): the reference's names (numpy's,
     ``bfloat16`` for bf16), a 0-d leaf keeping its rank."""
+    _refuse_dtensor(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().contiguous()
         name = ("bfloat16" if t.dtype == torch.bfloat16 else
@@ -496,21 +500,24 @@ class _Wire:
         self.f.close()
 
 
-def _read_leaf(wire: _Wire, codec: GradCodec, meta: dict, device, timings):
-    """Decode one leaf's limbs on ``device``: (int32 limbs, whether the
+def _read_leaf(wire: _Wire, codec: GradCodec, meta: dict, device, timings,
+               out_device=None):
+    """Decode one leaf's limbs on ``device`` into a buffer on
+    ``out_device`` (``device`` when None): (int32 limbs, whether the
     content fingerprint matches).  The sha256 streams over the decoded
     bytes a chunk at a time."""
     moduli = tuple(int(m) for m in codec.base.moduli)
     base = tuple(range(len(moduli)))
     n, nbytes = wire.n, meta["nbytes"]
-    out = torch.empty(n, dtype=torch.int32, device=device)
+    out = torch.empty(n, dtype=torch.int32,
+                      device=device if out_device is None else out_device)
     h = fingerprint_hasher(meta["dtype"], meta["shape"])
     for a in range(0, n, CHUNK):
         b = min(n, a + CHUNK)
         t0 = time.perf_counter()
         rows = torch.from_numpy(wire.rows(base, a, b)).to(device)
         t1 = time.perf_counter()
-        out[a:b] = _decode(rows, moduli)
+        out[a:b] = _decode(rows, moduli).to(out.device)
         t2 = time.perf_counter()
         h.update(memoryview(out[a:b].view(torch.uint8)[: nbytes - 4 * a]
                             .cpu().numpy()))
@@ -547,7 +554,8 @@ def _repair_leaf(wire: _Wire, codec: GradCodec, limbs, device) -> dict:
         return {"repaired": 0, "unrecoverable": 0}
     fixed, rep = repair_packed(codec, codec.as_array(cols, channel_major=True),
                                wraps=0)
-    limbs[idx] = _decode(fixed.residues[:nb].to(device), moduli)
+    limbs[idx.to(limbs.device)] = _decode(
+        fixed.residues[:nb].to(device), moduli).to(limbs.device)
     return rep
 
 
@@ -558,7 +566,8 @@ def _leaf_sha(leaf_limbs, meta) -> str:
     return h.hexdigest()[:32]
 
 
-def read_step_dir(path: str, *, device=None, timings: dict | None = None):
+def read_step_dir(path: str, *, device=None, timings: dict | None = None,
+                  decode_device=None):
     """Load + verify + repair one RRNS step dir.
 
     Returns ``(manifest, {name: tensor on device}, report)`` with ``report``
@@ -567,12 +576,14 @@ def read_step_dir(path: str, *, device=None, timings: dict | None = None):
     CheckpointCorrupt when any leaf is beyond single-channel repair —
     callers fall back to the next restorable step.  ``timings``, when
     given, accumulates the seconds spent reading, decoding, hashing and
-    repairing.
+    repairing.  ``decode_device``, when given, runs the decode and the
+    repair there while the leaves are gathered on ``device``.
 
     Legacy ``fault.load_step`` directories (plain ``.npy`` + sha
     fingerprints, no repair possible) are read transparently.
     """
     device = torch.device("cpu" if device is None else device)
+    work = device if decode_device is None else torch.device(decode_device)
     timings = {} if timings is None else timings
     for k in ("read_s", "decode_s", "sha_s", "repair_s"):
         timings.setdefault(k, 0.0)
@@ -591,10 +602,11 @@ def read_step_dir(path: str, *, device=None, timings: dict | None = None):
         fp = os.path.join(path, f"{i}.rns.npy")
         wire = _Wire(fp, codec.n_channels, (meta["nbytes"] + 3) // 4)
         try:
-            limbs, clean = _read_leaf(wire, codec, meta, device, timings)
+            limbs, clean = _read_leaf(wire, codec, meta, work, timings,
+                                      device)
             if not clean:
                 t0 = time.perf_counter()
-                rep = _repair_leaf(wire, codec, limbs, device)
+                rep = _repair_leaf(wire, codec, limbs, work)
                 timings["repair_s"] += time.perf_counter() - t0
                 if rep["unrecoverable"]:
                     report["unrecoverable"] += rep["unrecoverable"]
@@ -670,6 +682,7 @@ def inject_channel_corruption(path: str, *, leaf: int = 0,
 
 
 def _snapshot(leaf):
+    _refuse_dtensor(leaf)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().clone()
     return np.array(leaf, copy=True)
@@ -838,15 +851,22 @@ def restore(ckpt_dir: str, abstract_tree=None, shardings=None, *,
     ``abstract_tree`` (a tree of tensors, ``meta`` ones included) fixes the
     structure; None rebuilds a nested dict from the saved ``a/b/c`` leaf
     names (dict-only trees).  Every leaf comes back as a tensor on
-    ``device`` (the CPU when None), decoded there.  ``shardings`` — the
-    reference's elastic reshard onto a mesh — waits for the port's
-    sharding (ROADMAP.md, queue 1, item 4) and raises.
+    ``device`` (the CPU when None), decoded there.  ``shardings``, a
+    matching tree of ``dist.sharding.NamedSharding``s, places the leaves
+    on the current mesh instead, which is what makes restore elastic: the
+    step stores whole leaves, decoded on the mesh's device into host
+    tensors, and each rank takes its slice (``dist.sharding.place_host``),
+    so a ZeRO-1 state saved under one mesh reshards onto another.
 
     Returns ``(tree, step, extra, report)``; raises FileNotFoundError when
     nothing under ``ckpt_dir`` is restorable.
     """
+    decode_device = None
     if shardings is not None:
-        raise NotImplementedError(SHARDINGS_PENDING)
+        if abstract_tree is None or device is not None:
+            raise ValueError("restore(shardings=) needs the abstract tree, "
+                             "and no device=")
+        decode_device = mesh_device(_tree.flatten(shardings)[0][0].mesh)
     candidates = ([step] if step is not None
                   else list(reversed(discover_steps(ckpt_dir))))
     skipped = 0
@@ -854,8 +874,9 @@ def restore(ckpt_dir: str, abstract_tree=None, shardings=None, *,
     for s in candidates:
         path = os.path.join(ckpt_dir, f"step_{s}")
         try:
-            manifest, flat, report = read_step_dir(path, device=device,
-                                                   timings=timings)
+            manifest, flat, report = read_step_dir(
+                path, device=device, timings=timings,
+                decode_device=decode_device)
         except (FileNotFoundError, CheckpointCorrupt, OSError,
                 ValueError, KeyError) as e:
             if step is not None:
@@ -872,7 +893,9 @@ def restore(ckpt_dir: str, abstract_tree=None, shardings=None, *,
                 raise ValueError(
                     "checkpoint tree mismatch: "
                     f"{set(names) ^ set(manifest['names'])}")
-            tree = _tree.unflatten(spec, [flat[k] for k in names])
+            tree = _tree.unflatten(
+                spec, [flat[k] for k in names] if shardings is None
+                else place_leaves(names, flat, shardings, None))
         return tree, manifest["step"], manifest.get("extra", {}), report
     detail = f" (skipped {skipped}: {last_err})" if skipped else ""
     raise FileNotFoundError(

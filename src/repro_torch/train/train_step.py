@@ -8,6 +8,16 @@ wire buffer (``tree_pack_rns``, the codec_encode kernel on the card), that
 buffer is the only gradient collective (one ``all_reduce`` over the
 process group), and the decode runs at the optimizer boundary inside
 ``adamw_update`` (the codec_decode kernel).
+
+On a mesh (``mesh=``, a ``DeviceMesh`` with "data" and "model" axes) the
+parameters, the AdamW moments and the batch are DTensors placed by
+``dist.sharding``'s spec trees, and the step runs under
+``dist.act_sharding.use_mesh``.  The fp32 step lets DTensor reduce the
+gradients, pinned to ``grad_shardings``; the codec step computes each
+data rank's local gradient on the "model" sub-mesh, encodes its local
+shards and sums the wire over the mesh's "data" group.  Either way the
+update runs on the moments' placements (ZeRO-1 when ``cfg.zero1`` sharded
+them over "data") and the new parameters return to their own.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..dist import _tree
+from ..dist.act_sharding import current_mesh, use_mesh
 from ..dist.grad_codec import tree_decode, tree_pack_rns
 from ..models import train_logits
 from .optimizer import AdamWConfig, adamw_update
@@ -39,13 +50,68 @@ def make_loss_fn(cfg):
         inputs = dict(batch, tokens=tokens[:, :-1])
         labels = tokens[:, 1:]
         logits, aux = train_logits(cfg, params, inputs)  # (b, s, V)
-        logits = logits.to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        ce = torch.mean(lse - gold)
+        ce = torch.mean(_token_ce(logits.to(torch.float32), labels))
         return ce + AUX_COEF * aux, (ce, aux)
 
     return loss_fn
+
+
+def _lookup(logits, labels):
+    """The label's logit at each position: (..., V), (...) -> (...)."""
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def _token_ce(logits, labels):
+    """``logsumexp(logits) - logits[label]`` at each position, (b, s).
+
+    On a mesh nothing of the global (b, s, V) shape may land on a device,
+    which DTensor's own ``logsumexp`` and ``gather`` (and the gather's
+    backward, a scatter into zeros of the global shape) would do.  With
+    the vocabulary split the loss is vocab-parallel: the max and the sum
+    of exponentials reduce across the split, and each device looks up the
+    labels that fall in its slice of the vocabulary (``local_map``), the
+    others adding zero.  Otherwise the same two ops run shard by shard on
+    whole rows, which on a (1, 1) mesh is the plain computation."""
+    if current_mesh() is None or not hasattr(logits, "placements"):
+        return torch.logsumexp(logits, dim=-1) - _lookup(logits, labels)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..dist.sharding import local_slices
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    keep = [p if p.is_shard() and p.dim < last else Replicate()
+            for p in logits.placements]
+    if isinstance(labels, DTensor):
+        labels = labels.redistribute(mesh, keep)
+    elif all(isinstance(p, Replicate) for p in keep):
+        labels = DTensor.from_local(labels, mesh, keep, run_check=False)
+    else:
+        raise ValueError("the labels must be a DTensor where the logits' "
+                         "positions are split")
+    if not any(p.is_shard(last) for p in logits.placements):
+        logits = logits.redistribute(mesh, keep)
+        return local_map(
+            lambda lg, lb: torch.logsumexp(lg, dim=-1) - _lookup(lg, lb),
+            out_placements=keep, in_placements=(keep, keep),
+            device_mesh=mesh)(logits, labels)
+    m = logits.detach().amax(dim=-1, keepdim=True).redistribute(mesh, keep)
+    se = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(se.redistribute(mesh, keep)))[..., 0]
+    v0 = local_slices(tuple(logits.shape), mesh, logits.placements)[-1].start
+
+    def lookup(lg, lb):
+        idx = lb - v0
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        got = _lookup(lg, idx.clamp(0, lg.shape[-1] - 1))
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    part = [Partial() if p.is_shard(last) else q
+            for p, q in zip(logits.placements, keep)]
+    gold = local_map(lookup, out_placements=part,
+                     in_placements=(tuple(logits.placements), keep),
+                     device_mesh=mesh)(logits, labels)
+    return lse - gold
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -83,9 +149,42 @@ def _repair(codec, wire):
     return counts
 
 
+def _place(t, like):
+    """``t`` redistributed to the placements of the DTensor ``like``."""
+    if tuple(t.placements) == tuple(like.placements):
+        return t
+    return t.redistribute(like.device_mesh, like.placements)
+
+
+def _zero1_update(opt_cfg, params, grads, opt_state, grad_decode=None):
+    """``adamw_update`` on a mesh: gradients, parameters and masters move
+    to the moments' placements (a local slice where ZeRO-1 shards the
+    moments over "data" and the gradients are replicated there), the
+    update runs shard by shard, and the new parameters are gathered back
+    to the parameters' own placements."""
+    if grad_decode is not None:
+        grads = grad_decode(grads)
+    moments = opt_state["m"]
+    state = dict(opt_state)
+    if "master" in state:
+        state["master"] = _tree.tree_map(_place, state["master"], moments)
+    new_p, state, gnorm = adamw_update(
+        opt_cfg, _tree.tree_map(_place, params, moments),
+        _tree.tree_map(_place, grads, moments), state)
+    return _tree.tree_map(_place, new_p, params), state, gnorm
+
+
+def _like(g, p):
+    """The local shard ``g`` as a DTensor placed as ``p`` is."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(g, p.device_mesh, p.placements, run_check=False)
+
+
 def make_train_step(
-    cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1, rns_codec=None,
-    group=None, rns_repair: bool = False, transport_hook=None,
+    cfg, opt_cfg: AdamWConfig, *, microbatches: int = 1, grad_shardings=None,
+    mesh=None, rns_codec=None, group=None, rns_repair: bool = False,
+    transport_hook=None,
 ):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``batch["tokens"]`` is a (b, s+1) tensor on the
@@ -109,7 +208,19 @@ def make_train_step(
 
     transport_hook: optional ``buf -> buf`` on the raw channel-major wire
     residues between encode and repair/all-reduce — the seam where wire
-    corruption is injected."""
+    corruption is injected.
+
+    mesh: optional ``DeviceMesh``; the parameters, moments and batch are
+    then DTensors on it (module docstring), and the metrics come back as
+    plain tensors.  With a codec the wire sums over the mesh's "data"
+    group (``group`` must be None), the mesh's axes being ("data",
+    "model").
+
+    grad_shardings: optional tree of ``dist.sharding.NamedSharding``s
+    matching the parameters (on a mesh).  The gradients are redistributed
+    to it before the update, as the reference's
+    ``with_sharding_constraint`` pins them to the parameter sharding, so
+    that the ZeRO-1 moments reshard at the optimizer boundary."""
     if rns_repair and (rns_codec is None or rns_codec.mb is None):
         raise ValueError(
             "rns_repair requires a locate-and-correct codec: "
@@ -136,11 +247,57 @@ def make_train_step(
         return (loss * inv, ce * inv, aux * inv,
                 _tree.tree_map(lambda g: g * inv, g_acc))
 
+    def pin(grads):
+        if grad_shardings is None:
+            return grads
+        return _tree.tree_map(
+            lambda g, s: g.redistribute(s.mesh, s.placements),
+            grads, grad_shardings)
+
+    update = adamw_update if mesh is None else _zero1_update
+    if mesh is not None and rns_codec is not None:
+        names = tuple(mesh.mesh_dim_names or ())
+        if names != ("data", "model") or group is not None:
+            raise ValueError(
+                "the codec step on a mesh sums over its 'data' group: it "
+                f"needs ('data', 'model') axes, not {names}, and no group")
+        group = mesh.get_group("data")
+
+    def local_grads(params, batch):
+        """A data rank's own loss and gradient, the gradient as this
+        rank's local shards (plain tensors), from the "model" sub-mesh."""
+        from torch.distributed.tensor import DTensor
+
+        sub = mesh["model"]
+        on_sub = _tree.tree_map(
+            lambda p: DTensor.from_local(p.to_local(), sub, [p.placements[1]],
+                                         run_check=False), params)
+        local = {k: v.to_local() for k, v in batch.items()}
+        with use_mesh(sub):
+            loss, ce, aux, grads = grads_of(on_sub, local)
+            grads = _tree.tree_map(_place, grads, on_sub)
+        plain = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+        return (plain(loss), plain(ce), plain(aux),
+                _tree.tree_map(lambda g: g.to_local(), grads))
+
     def train_step(params, opt_state, batch):
-        loss, ce, aux, grads = grads_of(params, batch)
+        if mesh is None:
+            return _step(params, opt_state, batch)
+        with use_mesh(mesh):
+            params, opt_state, metrics = _step(params, opt_state, batch)
+        return params, opt_state, {
+            k: v.full_tensor() if hasattr(v, "full_tensor") else v
+            for k, v in metrics.items()}
+
+    def _step(params, opt_state, batch):
+        if mesh is not None and rns_codec is not None:
+            loss, ce, aux, grads = local_grads(params, batch)
+        else:
+            loss, ce, aux, grads = grads_of(params, batch)
+            grads = pin(grads)
         metrics = {}
         if rns_codec is None:
-            params, opt_state, gnorm = adamw_update(
+            params, opt_state, gnorm = update(
                 opt_cfg, params, grads, opt_state
             )
         else:
@@ -158,12 +315,12 @@ def make_train_step(
                 metrics["repaired"], metrics["unrepairable"] = counts
             psum(wire.residues, group)   # the ONLY gradient collective
             world = float(dist.get_world_size(group))
-            params, opt_state, gnorm = adamw_update(
-                opt_cfg, params, wire, opt_state,
-                grad_decode=lambda s: tree_decode(
-                    rns_codec, s, meta, denom=world
-                ),
-            )
+            decode = lambda s: tree_decode(rns_codec, s, meta, denom=world)
+            if mesh is not None:   # local shards back under their placements
+                decode = lambda s, d=decode: _tree.tree_map(_like, d(s),
+                                                            params)
+            params, opt_state, gnorm = update(
+                opt_cfg, params, wire, opt_state, grad_decode=decode)
             loss, ce, aux = psum(torch.stack([loss, ce, aux]), group) / world
         # the optimizer's post-update step counter rides along so drivers
         # can check a resume against the loop's own step

@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import repro  # noqa: F401  (x64, as the reference's own tests run it)
 from repro.train import checkpoint as r_checkpoint
 from repro.train import checkpointer as r_cp
-from repro_torch.dist import fault
+from repro_torch.dist import _tree, fault
 from repro_torch.train import checkpoint
 from repro_torch.train import checkpointer as cp
 
@@ -400,13 +400,43 @@ def test_scan_restorable_edge_cases(tmp_path):
                          ids=["checkpointer", "checkpoint"])
 def test_restore_with_shardings_raises_naming_queue_1_item_4(tmp_path,
                                                              restore):
-    """The reference's elastic ZeRO-1 reshard onto a mesh
-    (``test_elastic_restore_reshards_zero1_state``) waits for the port's
-    sharding: ``shardings=`` raises and names the ROADMAP item."""
-    cp.write_step_dir(str(tmp_path), 1, {"a": torch.zeros(2)})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, queue 1, item 4"):
-        restore(str(tmp_path), {"a": torch.zeros(2)}, {"a": object()})
+    """``restore(shardings=)``, the reference's elastic reshard onto a mesh
+    (``test_elastic_restore_reshards_zero1_state``), on a (1, 1) CPU mesh:
+    every leaf comes back a DTensor with the sharding's placements and the
+    saved values, and passing ``device=`` as well is refused.  (Until the
+    port had its sharding this call raised; the name is kept.)  Multi-rank
+    reshards are in ``test_torch_mesh.py``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    made = not dist.is_initialized()
+    mesh = make_host_mesh("cpu")
+    try:
+        tree = {"a": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+                "b": {"c": torch.arange(5)}}
+        if restore is cp.restore:
+            cp.write_step_dir(str(tmp_path), 1, tree)
+        else:
+            checkpoint.save(str(tmp_path), 1, tree)
+        specs = {"a": sh.PartitionSpec("data", "model"),
+                 "b": {"c": sh.PartitionSpec(None)}}
+        shard = sh.named_shardings(specs, mesh)
+        got = restore(str(tmp_path), tree, shard)
+        assert got[1] == 1
+        for (name, leaf), want, s in zip(_tree.flatten_named(got[0]),
+                                         [tree["a"], tree["b"]["c"]],
+                                         [shard["a"], shard["b"]["c"]]):
+            assert isinstance(leaf, DTensor), name
+            assert leaf.placements == s.placements
+            assert torch.equal(leaf.full_tensor(), want)
+        with pytest.raises(ValueError, match="device"):
+            restore(str(tmp_path), tree, shard, device="cpu")
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 # -------------------------------------------------- the two packages' bytes

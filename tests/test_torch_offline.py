@@ -205,6 +205,27 @@ def test_replica_devices():
         TO.replica_devices(0, [cpu])
 
 
+def test_replica_devices_raise_without_a_card(monkeypatch):
+    """No card and no devices named: an error, not a quiet fall back to
+    the CPU; named, the CPU serves."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TO.replica_devices(2)
+    assert TO.replica_devices(2, ["cpu"]) == [torch.device("cpu")] * 2
+
+
+def test_profiler_window_takes_its_device():
+    """``ProfilerWindow`` has no default device: each caller names one."""
+    from repro_torch.launch.profiling import ProfilerWindow
+
+    with pytest.raises(TypeError):
+        ProfilerWindow(0, 1, ".")
+    w = ProfilerWindow(-1, 0, ".", device="cpu")
+    assert not w.enabled
+    assert ProfilerWindow(0, 1, ".", device="cuda").activities[-1] == \
+        torch.profiler.ProfilerActivity.CUDA
+
+
 # ---------------------------------------------------------- replica set
 def test_replica_set_shared_queue_least_loaded(model):
     cfg, params = model
