@@ -100,9 +100,31 @@ prints one JSON object per line:
                5e, before its directory goes: ``restore(shardings=)`` of
                the rrns-v1 step under the parameter and ZeRO-1 specs,
                bit-equal to its ``device=`` restore, seconds of each; (d)
-               ``launch.dryrun`` of gemma3-1b's train_4k cell on the
-               (16, 16) production mesh over a fake group, in a
-               subprocess: per-device bytes beside the card's memory;
+               ``launch.dryrun`` of gemma3-1b's train_4k and prefill_32k
+               cells on the (16, 16) production mesh over a fake group,
+               in a subprocess: per-device bytes beside the card's memory,
+               prefill_32k's under 80 GB;
+5g. flash    — slice 11, the chunked attention routes
+               (``models.attention.flash_attention``): gemma3-1b at full
+               width and depth (26 layers, 6, 12, 18 and 24 global), f32
+               parameters from seed 0, bf16 compute.  (a) ``prefill`` of
+               one 32,768-token prompt (the scan route) into a cache of
+               33,280 positions, then 16 greedy ``decode_step``s: the
+               prefill's ms (CUDA events), launching ops and peak memory,
+               each decode step's ms, the 17 logit rows within
+               SERVE_LOGIT_TOL of a teacher-forced forward through the
+               chunked route (padded to whole chunks); (b) an 8,192-token
+               prompt through the chunked and the whole-row routes: the
+               last position's logits within 2**-5 of the largest |logit|,
+               every token decided by its top-2 margin equal over all
+               positions, both prefills' peak memory; (c) the training
+               CLI at batch 1 x seq 8192, 2 steps each: fp32 (vjp),
+               ``--rns-allreduce`` (one encode and one decode launch a
+               step, step 1's kernels bit for bit) and fp32 with
+               ``attn_impl="unrolled"``: finite losses, codec drift under
+               0.05, the vjp run's update within FLASH_UPDATE_TOL of the
+               unrolled run's, step ms and peak memory of each; (d) the
+               prefill_32k dry run of 5f;
 6. crypto    — slice 3, the RNS crypto lane at RSA-2048 width.  Parity:
                the Montgomery product and ladder-bit kernels against their
                plain versions, bit for bit on every channel, over n_limbs in
@@ -225,8 +247,9 @@ prints one JSON object per line:
                memory of each run;
 6e. vlm      — internvl2-26b at full width cut to 12 of 48 layers through
                the serve CLI, which falls back to single-shot serving (4
-               requests of Poisson(256) prompts behind 1,024 patch
-               embeddings, 16 new tokens): each request's logits against a
+               requests of 512 and 1,024-token prompts behind 1,024 patch
+               embeddings, 16 new tokens; the prefill takes whole
+               512-token chunks): each request's logits against a
                teacher-forced forward with the same patches, within
                SERVE_LOGIT_TOL;
 6f. families — mamba2-370m and zamba2-1.2b at full width and depth through
@@ -236,7 +259,7 @@ prints one JSON object per line:
                tokens each), and whisper-tiny on 4 Poisson(64) prompts with
                frames drawn per request: every request served, its logits
                against a teacher-forced forward (padded at the end to a
-               multiple of 128) within SERVE_LOGIT_TOL in bf16 compute, or,
+               multiple of 512) within SERVE_LOGIT_TOL in bf16 compute, or,
                where a request breaks it there, in f32 compute with the
                bf16 distances reported; tokens/s, decode step ms (CUDA
                events) and peak memory;
@@ -409,6 +432,8 @@ MESH_BATCH, MESH_SEQ = 2, 1024
 MESH_FP32_STEPS, MESH_CODEC_STEPS = 2, 2
 MESH_DRYRUN = ("--arch", "gemma3-1b", "--shape", "train_4k", "--mesh",
                "single")
+FLASH_DRYRUN = ("--arch", "gemma3-1b", "--shape", "prefill_32k", "--mesh",
+                "single")
 WARM_ARGS = ("--page-size", "512", "--rns-verify")
 
 # Slice 3, the crypto lane at RSA-2048 width: CryptoContext(n_limbs=138,
@@ -513,9 +538,15 @@ MOE_ENGINE = with_arch(PAGED_ENGINE, MOE_ARCH)
 MOE_TRAIN_ARGS = ("--arch", MOE_ARCH, "--no-smoke", "--batch", "2",
                   "--seq", "1024", "--steps", "3")
 MOE_TRAIN_LAYERS = 2
-VLM_ARGS = ("--arch", VLM_ARCH, "--no-smoke", "--requests", "4",
-            "--prompt-mean", "256", "--max-new", "16", "--seed", "0",
-            "--device", DEVICE)
+# Prompts of whole 512-token chunks: with the 1,024 patches ahead of them
+# the prefill is a whole number of attention chunks, the only length the
+# chunked attention takes (the reference's assert); written as a trace
+# (``chunk_trace``) to chiprun_out/vlm_trace.jsonl.
+VLM_PROMPTS = (512, 1024, 512, 1024)
+VLM_MAX_NEW = 16
+VLM_ARGS = ("--arch", VLM_ARCH, "--no-smoke", "--trace",
+            os.path.join(ROOT, "chiprun_out", "vlm_trace.jsonl"), "--seed",
+            "0", "--device", DEVICE)
 VLM_LAYERS = 12
 # Slice 8, the ssm, hybrid and encdec families (phases 5d and 6f), each at
 # full width and depth: mamba2-370m (48 layers, d 1024, 32 SSD heads, state
@@ -538,10 +569,33 @@ FAMILY_TRAIN_ARGS = {
 }
 SSM_PROMPTS = (128, 256, 512, 1024)   # the trace's prompt lengths
 SSM_MAX_NEW = 32
-SSM_CHUNK = 128                       # teacher-forced inputs pad to it
 ENCDEC_SERVE_ARGS = ("--arch", ENCDEC_ARCH, "--no-smoke", "--requests", "4",
                      "--prompt-mean", "64", "--max-new", str(SSM_MAX_NEW),
                      "--seed", "0", "--device", DEVICE)
+# Slice 11, the chunked attention routes (phase 5g): gemma3-1b at full
+# width and depth (26 layers, of which 6, 12, 18 and 24 are global), f32
+# parameters from seed 0, bf16 compute.  (a) ``models.prefill`` (the scan
+# route) of one FLASH_PROMPT-token prompt into a cache of FLASH_CACHE
+# positions, then FLASH_DECODE greedy decode steps (decode_32k's shape at
+# batch 1), against a teacher-forced forward through the chunked route;
+# (b) a FLASH_AGREE-token prompt through the chunked and the whole-row
+# routes; (c) the training CLI at batch 1 x FLASH_AGREE, 2 steps each:
+# fp32 (the vjp route), --rns-allreduce, and fp32 on the unrolled route;
+# (d) within 5f's dry run, the prefill_32k cell.
+ATTN_CHUNK = 512          # the models' attention chunk: longer inputs pad to it
+FLASH_ARCH = "gemma3-1b"
+FLASH_PROMPT, FLASH_CACHE, FLASH_DECODE = 32768, 33280, 16
+FLASH_AGREE = 8192
+FLASH_AGREE_TOL = 2.0 ** -5   # test_torch_models.py's bf16 bound
+FLASH_TRAIN_ARGS = ("--arch", FLASH_ARCH, "--no-smoke", "--batch", "1",
+                    "--seq", str(FLASH_AGREE), "--steps", "2")
+# The vjp run's update against the unrolled run's, after the last step:
+# |theta_vjp - theta_unrolled| / |theta_unrolled - theta_0| (L2 over every
+# parameter).  Both backward passes are exact to rounding, but AdamW's
+# first steps move each weight by about lr * sign(g), so a weight whose
+# gradient sits within the rounding of 0 moves the other way; a wrong
+# backward moves most weights the other way (a ratio near 1 or above).
+FLASH_UPDATE_TOL = 0.25
 ORACLE_CHUNK = 16                  # pow() calls per process-pool task
 # Card cycles to sleep before a queued timing: longer than the host takes to
 # enqueue ten launches of any kernel timed (about 2 ms at 1.98 GHz).
@@ -1911,28 +1965,38 @@ def mesh_serve(dev, mesh) -> dict:
 
 
 def mesh_dryrun() -> dict:
-    """Phase 5f (d): ``launch.dryrun`` of gemma3-1b's train_4k cell on the
-    (16, 16) production mesh over a fake group, in a process of its own
-    (the fake group must be its only one); its record's memory, roofline
-    and collectives."""
+    """Phase 5f (d) and 5g (d): ``launch.dryrun`` of gemma3-1b's train_4k
+    and prefill_32k cells on the (16, 16) production mesh over a fake
+    group, in a process of their own (the fake group must be its only
+    one); each record's memory, roofline and collectives.  The prefill
+    cell must fit the card."""
     out_dir = os.path.join(ROOT, "chiprun_out", "dryrun")
     shutil.rmtree(out_dir, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cells = (MESH_DRYRUN, FLASH_DRYRUN)
+    script = ("import sys; from repro_torch.launch import dryrun; "
+              + "; ".join(f"dryrun.main({[*c, '--out', out_dir]!r})"
+                          for c in cells))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *MESH_DRYRUN,
-         "--out", out_dir], env=env, cwd=ROOT, capture_output=True,
-        text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
     require(proc.returncode == 0,
             f"mesh dry run failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    with open(os.path.join(out_dir,
-                           "gemma3-1b__train_4k__single.json")) as f:
-        rec = json.load(f)
-    return {"seconds": time.perf_counter() - t0, "devices": rec["devices"],
-            "memory": rec["memory"], "roofline": rec["roofline"],
-            "collectives": rec["collectives"],
-            "useful_flops_ratio": rec["useful_flops_ratio"],
-            "run_s": rec["run_s"]}
+    out = {"seconds": time.perf_counter() - t0}
+    for c in cells:
+        arch, shape = c[c.index("--arch") + 1], c[c.index("--shape") + 1]
+        with open(os.path.join(out_dir, f"{arch}__{shape}__single.json")) as f:
+            rec = json.load(f)
+        out[shape] = {"devices": rec["devices"], "memory": rec["memory"],
+                      "roofline": rec["roofline"],
+                      "collectives": rec["collectives"],
+                      "useful_flops_ratio": rec["useful_flops_ratio"],
+                      "local_ops": rec["local_ops"], "run_s": rec["run_s"]}
+    mem = out["prefill_32k"]["memory"]
+    require(mem["fits_hbm"] and mem["per_device_bytes"] < 80e9,
+            f"dry run: prefill_32k takes {mem['per_device_bytes']} bytes a "
+            "device")
+    return out
 
 
 def mesh_main_path(dev, max_err) -> dict:
@@ -1962,6 +2026,222 @@ def mesh_main_path(dev, max_err) -> dict:
     return {"seconds": time.perf_counter() - t_start, "train": train,
             "serve": serve, "dryrun": dry,
             "launches": {k: after[k] - before[k] for k in after}}
+
+
+# -------------------------------- slice 11: the chunked attention routes
+def cuda_timed(fn):
+    """(fn(), its ms between two CUDA events)."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def launching_ops(fn):
+    """(fn(), the aten ops it dispatches that are not views): each launches
+    a kernel on the card, a matmul sometimes two, so it counts the
+    launches from below."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        out = fn()
+    return out, count.n
+
+
+@contextlib.contextmanager
+def whole_row_attention():
+    """The models' attention routed to the plain whole-row ``attention``
+    for the length of the block."""
+    from repro_torch.models import attention as attn
+
+    orig = attn.flash_attention
+    attn.flash_attention = lambda q, k, v, *, causal=True, window=None, \
+        **_: attn.attention(q, k, v, causal=causal, window=window)
+    try:
+        yield
+    finally:
+        attn.flash_attention = orig
+
+
+def peak_above(fn):
+    """(fn(), the card's peak allocated bytes during it above what was
+    allocated when it started)."""
+    import torch
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def flash_prefill_path(dev) -> dict:
+    """Phase 5g (a) and (b): the FLASH_PROMPT-token prefill and its
+    decode steps against a teacher-forced forward, then the FLASH_AGREE
+    agreement of the chunked route with the whole-row one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_params, prefill,
+                                    train_logits)
+    from repro_torch.models.transformer import global_flags
+
+    cfg = get_config(FLASH_ARCH)
+    require([i + 1 for i in np.flatnonzero(global_flags(cfg))]
+            == [6, 12, 18, 24] and cfg.n_layers == 26,
+            f"flash: {cfg.name}'s global layers")
+    params = init_params(cfg, 0, dev)
+    prompt = np.random.default_rng(0).integers(1, cfg.vocab,
+                                               FLASH_PROMPT).tolist()
+    tokens = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    out = {"layers": cfg.n_layers, "prompt": FLASH_PROMPT,
+           "cache_len": FLASH_CACHE}
+
+    # (a) prefill (the scan route) and greedy decode from its cache
+    def run_prefill():
+        return cuda_timed(lambda: prefill(cfg, params, {"tokens": tokens},
+                                          FLASH_CACHE))
+
+    ((logits, cache), out["prefill_ms"]), out["prefill_peak_bytes"] = \
+        peak_above(run_prefill)
+    _, out["prefill_ops"] = launching_ops(
+        lambda: prefill(cfg, params, {"tokens": tokens}, FLASH_CACHE))
+    rows, toks, out["decode_ms"] = [logits[0]], [int(logits[0].argmax())], []
+    for i in range(FLASH_DECODE):
+        step = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
+        (lg, cache), ms = cuda_timed(
+            lambda: decode_step(cfg, params, cache, step, FLASH_PROMPT + i))
+        rows.append(lg[0])
+        toks.append(int(lg[0].argmax()))
+        out["decode_ms"].append(ms)
+    del cache, logits
+    r = types.SimpleNamespace(rid=0, prompt=prompt, out=toks)
+    out["teacher_forced"], out["teacher_forced_peak_bytes"] = peak_above(
+        lambda: teacher_forced(cfg, params, r, torch.stack(rows), dev))
+    del rows
+
+    # (b) the chunked route against whole rows at FLASH_AGREE tokens
+    short = tokens[:, :FLASH_AGREE]
+    routes = {}
+    for route in ("chunked", "whole_rows"):
+        ctx = (whole_row_attention() if route == "whole_rows"
+               else contextlib.nullcontext())
+        with ctx, torch.inference_mode():
+            ((last, _), ms), peak = peak_above(lambda: cuda_timed(
+                lambda: prefill(cfg, params, {"tokens": short},
+                                FLASH_AGREE)))
+            full, _ = train_logits(cfg, params, {"tokens": short})
+        routes[route] = {"last": last[0].float(), "full": full[0],
+                         "prefill_ms": ms, "prefill_peak_bytes": peak}
+    got, want = routes["chunked"], routes["whole_rows"]
+    scale = float(want["last"].abs().max())
+    last_diff = float((got["last"] - want["last"]).abs().max())
+    row_diff, decided, equal = [], [], []
+    for a in range(0, FLASH_AGREE, 1024):       # f32 a block of rows at once
+        g, w = (x["full"][a:a + 1024].float() for x in (got, want))
+        row_diff.append((g - w).abs().amax(-1))
+        top2 = w.topk(2, dim=-1).values
+        decided.append(top2[:, 0] - top2[:, 1] > row_diff[-1])
+        equal.append(g.argmax(-1) == w.argmax(-1))
+    row_diff, decided, equal = (torch.cat(t) for t in (row_diff, decided,
+                                                       equal))
+    out["agreement"] = {
+        "tokens": FLASH_AGREE, "last_max_abs_diff": last_diff,
+        "last_max_abs_logit": scale,
+        "tolerance": FLASH_AGREE_TOL * scale,
+        "all_positions_max_abs_diff": float(row_diff.max()),
+        "all_positions_max_abs_logit": float(want["full"].abs().max()),
+        "decided_tokens": int(decided.sum()),
+        "decided_tokens_equal": int((decided & equal).sum()),
+        "tokens_equal": int(equal.sum()),
+        **{f"{k}_{name}": v[name] for k, v in routes.items()
+           for name in ("prefill_ms", "prefill_peak_bytes")}}
+    require(last_diff <= FLASH_AGREE_TOL * scale,
+            f"flash: the last position's logits differ by {last_diff}")
+    require(bool((equal | ~decided).all()),
+            f"flash: {int((decided & ~equal).sum())} decided tokens differ "
+            "between the chunked and the whole-row routes")
+    return out
+
+
+def flash_train_path(dev, max_err) -> dict:
+    """Phase 5g (c): FLASH_TRAIN_ARGS through the training CLI three times
+    from one seed: fp32 on the vjp route, ``--rns-allreduce`` (one encode
+    and one decode launch a step, step TRAIN_CHECK_STEP's kernels against
+    their plain versions) and fp32 on the unrolled route; every loss
+    finite, the codec's drift under TRAIN_MAX_DRIFT, and the vjp run's
+    update within FLASH_UPDATE_TOL of the unrolled run's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import init_params
+
+    runs, launches, final = {}, Counter(), {}
+    for label, flags, fields in (("vjp", (), {}),
+                                 ("rns", ("--rns-allreduce",), {}),
+                                 ("unrolled", (), {"attn_impl": "unrolled"})):
+        with replaced_config(launch_train, **fields):
+            r = train_run(dev, max_err, f"flash/{label}", flags,
+                          TRAIN_CHECK_STEP if flags else None,
+                          args=FLASH_TRAIN_ARGS, phase="flash_train")
+        launches.update(r["launches"])
+        runs[label] = {k: r["summary"][k] for k in
+                       ("losses", "step_ms", "tokens_per_s",
+                        "max_memory_allocated")}
+        runs[label]["seconds"] = r["seconds"]
+        if label != "rns":      # kept off the card while the others run
+            final[label] = [p.cpu() for _, p in _named(r["params"])]
+        del r
+    drift = max(abs(a - b) for a, b in zip(runs["rns"]["losses"],
+                                           runs["vjp"]["losses"]))
+    require(drift < TRAIN_MAX_DRIFT, f"flash train: codec drift {drift}")
+    free_card()
+    theta0 = [p for _, p in _named(init_params(get_config(FLASH_ARCH), 0,
+                                                 dev))]
+    num = den = 0.0
+    for a, b, c in zip(final["vjp"], final["unrolled"], theta0):
+        a, b = (t.to(dev, torch.float64) for t in (a, b))
+        num += float((a - b).square().sum())
+        den += float((b - c.double()).square().sum())
+    ratio = math.sqrt(num / den)
+    require(ratio <= FLASH_UPDATE_TOL,
+            f"flash train: the vjp run's update is {ratio} of the unrolled "
+            "run's away from it")
+    del final, theta0
+    return {"runs": runs, "codec_drift": drift,
+            "update_ratio_vjp_vs_unrolled": ratio,
+            "update_tolerance": FLASH_UPDATE_TOL,
+            "step1_loss_equal": (runs["vjp"]["losses"][0]
+                                 == runs["unrolled"]["losses"][0]),
+            "launches": implied(**launches)}
+
+
+def flash_main_path(dev, max_err) -> dict:
+    """Phase 5g: (a) and (b) (``flash_prefill_path``), (c)
+    (``flash_train_path``); (d) runs inside 5f's ``mesh_dryrun``."""
+    t0 = time.perf_counter()
+    free_card()
+    serve = flash_prefill_path(dev)
+    train = flash_train_path(dev, max_err)
+    return {**serve, "train": train, "launches": train["launches"],
+            "seconds": time.perf_counter() - t0}
 
 
 # ------------------------------------------------ slice 3: the crypto lane
@@ -2468,12 +2748,13 @@ def serve_run(argv, keep_rows=(), keep_logits=()):
 
 
 def teacher_forced(cfg, params, r, got, dev, stubs=None, held=True,
-                   pad_to=1) -> dict:
+                   pad_to=ATTN_CHUNK) -> dict:
     """Request ``r``'s engine logits ``got`` (the last prompt position, then
     each decode step) against a teacher-forced ``train_logits`` over
     prompt + out[:-1] (with ``stubs``, the request's vlm patches or encdec
-    frames; padded at the end to a multiple of ``pad_to`` tokens, which
-    causality keeps out of every compared position): within
+    frames; padded at the end so that the patches and tokens make a
+    multiple of ``pad_to``, the attention's chunk, which causality keeps
+    out of every compared position): within
     SERVE_LOGIT_TOL of the forward's largest |logit|, and every token
     whose top-2 margin there exceeds the difference equal to the forward's
     argmax.  With ``held`` false both are measured, not required."""
@@ -2484,7 +2765,9 @@ def teacher_forced(cfg, params, r, got, dev, stubs=None, held=True,
     plen = len(r.prompt)
     with torch.inference_mode():
         seq = r.prompt + r.out[:-1]
-        pad = -len(seq) % pad_to
+        prefix = (stubs or {}).get("patches")     # the vlm patches go first
+        pad = -(len(seq) + (0 if prefix is None else prefix.shape[1])
+                ) % pad_to
         batch = {"tokens": torch.tensor([seq + [0] * pad], device=dev)}
         batch.update(stubs or {})
         fwd, _ = train_logits(cfg, params, batch)
@@ -3173,7 +3456,8 @@ def moe_serve_path(dev, max_err) -> dict:
     nodrop = dataclasses.replace(
         cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     lengths = {1, shape["prefill_chunk"]} | {
-        len(done[k].prompt) + len(done[k].out) - 1 for k in SERVE_CHECK_RIDS}
+        -(-(len(done[k].prompt) + len(done[k].out) - 1) // ATTN_CHUNK)
+        * ATTN_CHUNK for k in SERVE_CHECK_RIDS}     # as teacher_forced pads
     require(all(capacity(nodrop, s) >= s for s in lengths),
             f"moe no-drop: capacity below a call's length in {lengths}")
     consistency = {}
@@ -3329,7 +3613,7 @@ def check_single_shot(run, seen, n_req, max_new, what) -> None:
             f"{what}: report {rep}")
 
 
-def held_to_forward(seen, dev, held=True, pad_to=1) -> list:
+def held_to_forward(seen, dev, held=True) -> list:
     """Each recorded request's logits against its teacher-forced forward
     (``teacher_forced``); the tokens the CLI chose are each row's
     argmax."""
@@ -3341,24 +3625,26 @@ def held_to_forward(seen, dev, held=True, pad_to=1) -> list:
         r = types.SimpleNamespace(rid=i, prompt=s["prompt"],
                                   out=logits.argmax(dim=-1).tolist())
         checked.append(teacher_forced(s["cfg"], s["params"], r, logits, dev,
-                                      stubs=s["stubs"], held=held,
-                                      pad_to=pad_to))
+                                      stubs=s["stubs"], held=held))
     return checked
 
 
 def vlm_single_shot_path(dev) -> dict:
     """Phase 6e: internvl2-26b at full width cut to VLM_LAYERS layers
-    through the serve CLI (VLM_ARGS), which gates the vlm family out of the
-    engine and falls back to single-shot serving; each request's logits
-    (the last prompt position, then each decode step) against a
-    teacher-forced forward with the same patches."""
+    through the serve CLI (VLM_ARGS) on a trace of VLM_PROMPTS it writes,
+    which gates the vlm family out of the engine and falls back to
+    single-shot serving; each request's logits (the last prompt position,
+    then each decode step) against a teacher-forced forward with the same
+    patches."""
+    from repro_torch.configs import get_config
+
     t_start = time.perf_counter()
     free_card()
+    chunk_trace(VLM_ARGS[VLM_ARGS.index("--trace") + 1],
+                get_config(VLM_ARCH).vocab, VLM_PROMPTS, VLM_MAX_NEW)
     run, seen = single_shot_run(VLM_ARGS, VLM_LAYERS)
     rep = run["report"]
-    check_single_shot(run, seen, int(VLM_ARGS[VLM_ARGS.index("--requests")
-                                              + 1]),
-                      int(VLM_ARGS[VLM_ARGS.index("--max-new") + 1]), "vlm")
+    check_single_shot(run, seen, len(VLM_PROMPTS), VLM_MAX_NEW, "vlm")
     cfg, params = seen[0]["cfg"], seen[0]["params"]
     checked = held_to_forward(seen, dev)
     return {"args": list(VLM_ARGS), "layers": cfg.n_layers,
@@ -3438,31 +3724,31 @@ def family_train_path(dev, max_err) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def ssm_trace(path: str, vocab: int) -> None:
-    """Phase 6f's JSONL workload (the serve CLI's ``--trace``): one request
-    per SSM_PROMPTS length, seeded random tokens, SSM_MAX_NEW new tokens and
-    no EOS, arriving a tick apart."""
+def chunk_trace(path: str, vocab: int, lengths, max_new: int) -> None:
+    """A JSONL workload (the serve CLI's ``--trace``) of whole-chunk
+    prompts: one request per length of ``lengths``, seeded random tokens,
+    ``max_new`` new tokens and no EOS, arriving a tick apart."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
-        for i, n in enumerate(SSM_PROMPTS):
+        for i, n in enumerate(lengths):
             f.write(json.dumps({
                 "rid": i, "prompt": rng.integers(1, vocab, n).tolist(),
-                "max_new": SSM_MAX_NEW, "eos": None,
+                "max_new": max_new, "eos": None,
                 "arrival": float(i)}) + "\n")
 
 
 def family_single_shot_path(dev) -> dict:
     """Phase 6f: mamba2-370m and zamba2-1.2b at full width and depth
-    through the serve CLI on the trace ``ssm_trace`` writes to
+    through the serve CLI on the trace ``chunk_trace`` writes to
     chiprun_out/ssm_trace.jsonl, and whisper-tiny on ENCDEC_SERVE_ARGS
     (frames drawn per request); the CLI gates each family out of the engine
     and serves single-shot.  Every request served; each request's logits
     (the last prompt position, then each decode step) against a
     teacher-forced forward over its prompt and tokens (and frames), padded
-    at the end to a multiple of SSM_CHUNK.  The bound is held in the
+    at the end to a multiple of ATTN_CHUNK.  The bound is held in the
     configs' bf16 compute; where a request breaks it there, the same run in
     f32 compute is held to it instead and the bf16 distances are
     reported."""
@@ -3478,7 +3764,8 @@ def family_single_shot_path(dev) -> dict:
         if arch == ENCDEC_ARCH:
             argv, n_req = ENCDEC_SERVE_ARGS, 4
         else:
-            ssm_trace(path, get_config(arch).vocab)
+            chunk_trace(path, get_config(arch).vocab, SSM_PROMPTS,
+                        SSM_MAX_NEW)
             argv = ("--arch", arch, "--no-smoke", "--trace", path,
                     "--cache-len", str(max(SSM_PROMPTS) + SSM_MAX_NEW),
                     "--seed", "0", "--device", DEVICE)
@@ -3489,8 +3776,7 @@ def family_single_shot_path(dev) -> dict:
             run, seen = single_shot_run(argv, **fields)
             check_single_shot(run, seen, n_req, SSM_MAX_NEW,
                               f"{arch} single-shot")
-            checked = held_to_forward(seen, dev, held=dtype == "float32",
-                                      pad_to=SSM_CHUNK)
+            checked = held_to_forward(seen, dev, held=dtype == "float32")
             rep = run["report"]
             decode_ms = [t for s in seen for t in s["decode_ms"]]
             rows[dtype] = {
@@ -3809,9 +4095,37 @@ def main() -> int:
           f"tokens and pool equal; restore onto the mesh "
           f"{mr['shardings_s']:.1f} s against {mr['device_s']:.1f} s, "
           f"bit-equal; dry run train_4k on (16, 16): "
-          f"{dr['memory']['per_device_bytes']} bytes a device, fits "
-          f"{dr['memory']['fits_hbm']}, in {mesh['seconds']:.1f} s",
+          f"{dr['train_4k']['memory']['per_device_bytes']} bytes a device, "
+          f"fits {dr['train_4k']['memory']['fits_hbm']}; prefill_32k "
+          f"{dr['prefill_32k']['memory']['per_device_bytes']} bytes; in "
+          f"{mesh['seconds']:.1f} s",
           flush=True)
+
+    # ------------------------ 5g. flash: slice 11's chunked attention
+    flash = flash_main_path(dev, max_err)
+    for k in launches:
+        launches[k] += flash["launches"][k]
+    emit({"phase": "flash", "step": "total", **flash,
+          "dryrun_prefill_32k": dr["prefill_32k"], "card": card})
+    ft, fa, ftf = flash["train"], flash["agreement"], flash["teacher_forced"]
+    print(f"flash: gemma3-1b full width and depth, {card}: prefill of "
+          f"{FLASH_PROMPT} tokens {flash['prefill_ms']:.1f} ms (CUDA events)"
+          f", {flash['prefill_ops']} launching ops, peak "
+          f"{flash['prefill_peak_bytes']} bytes above the parameters; decode "
+          f"step {statistics.median(flash['decode_ms']):.2f} ms (median of "
+          f"{FLASH_DECODE}), logits within {ftf['max_abs_diff']:.4f} of the "
+          f"teacher-forced forward (bound {ftf['tolerance']:.4f}); at "
+          f"{FLASH_AGREE} tokens chunked against whole rows "
+          f"{fa['last_max_abs_diff']:.4f} (bound {fa['tolerance']:.4f}), "
+          f"peak {fa['chunked_prefill_peak_bytes']} against "
+          f"{fa['whole_rows_prefill_peak_bytes']} bytes, "
+          f"{fa['decided_tokens_equal']}/{fa['decided_tokens']} decided "
+          f"tokens equal; train batch 1 x {FLASH_AGREE} step ms vjp "
+          f"{ft['runs']['vjp']['step_ms']}, codec {ft['runs']['rns']['step_ms']}"
+          f", unrolled {ft['runs']['unrolled']['step_ms']}, update ratio "
+          f"{ft['update_ratio_vjp_vs_unrolled']:.4f}; dry run prefill_32k "
+          f"{dr['prefill_32k']['memory']['per_device_bytes']} bytes a device;"
+          f" in {flash['seconds']:.1f} s", flush=True)
 
     # ------------------------------------- 6. crypto: slice 3's main path
     t0 = time.perf_counter()

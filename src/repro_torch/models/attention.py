@@ -1,17 +1,38 @@
 """Attention: the training forward (project, rotate, attend, project) and
 the cached decode path of the serve engine.
 
-``attention`` computes what the reference's ``flash_attention`` computes
-(``repro/models/attention.py``, ``_flash_fwd_chunks`` and its hand-written
-VJP), over whole rows instead of chunks: q scaled by ``hd ** -0.5`` in q's
-dtype before the dot, scores in f32, the causal mask ``j <= i`` and the
-window mask ``j > i - window``, probabilities cast to v's dtype for the PV
-product, the output ``acc / max(l, 1e-30)``, and under GQA query head ``h``
-reading KV head ``h // (heads / kv)``.  The reference has no Pallas kernel
-here; autograd over these matmuls is the backward pass.  The chunked online
-softmax only bounds the reference's live memory; the full rows give the
-same values up to the order of f32 sums (and, in bf16, where the
-probabilities round).
+``flash_attention`` is the reference's chunked attention
+(``repro/models/attention.py:48-322``): q_chunk x kv_chunk blocks under an
+online softmax, so live memory is O(chunk²) rather than O(s²).  q is
+scaled by ``hd ** -0.5`` in q's dtype, scores are f32 with the causal mask
+``j <= i`` and the window mask ``j > i - window``, the running max, sum
+and accumulator are f32, probabilities are cast to v's dtype for the PV
+product, and the output is ``acc / max(l, 1e-30)``; under GQA query head
+``h`` reads KV head ``h // (heads / kv)``.  Three routes, as the
+reference's ``impl``:
+
+* ``"vjp"`` (training): the forward visits only the KV chunks the causal
+  mask and the window can reach (``kv_bounds``) and saves (q, k, v, out,
+  lse); its hand-written backward recomputes each chunk's probabilities
+  from ``lse`` (the reference's ``_flash_vjp_bwd``);
+* ``"scan"`` (prefill): the same forward, which refuses a backward pass;
+* ``"unrolled"`` (the reference's baseline): KV chunks ``0..qi`` whatever
+  the window, which masks and does not skip, with autograd through the
+  online softmax.
+
+A length above the chunk that is not a whole number of chunks raises
+``ValueError``, as the reference's asserts refuse it.  A fully visible
+block is not masked (the mask would change nothing); the masks of the
+others are made once a call for each offset between the chunks.  On a
+mesh the chunk loop runs on each device's shard under ``local_map``
+(batch and heads split, the sequence whole), so DTensor dispatches once a
+call rather than once an op of the loop.
+
+``attention`` is the plain version over whole rows: the same values up to
+the order of f32 sums (and, in bf16, where the probabilities round), at an
+(sq, skv) score block a head.  The tests and the chip smoke test hold the
+routes against it; the models do not call it.  The reference has no
+Pallas kernel here: the products are ``torch.matmul``.
 
 ``attn_forward(enc=)`` and ``attn_decode(enc=)`` are the encdec family's
 cross-attention (``attention.py:325-353``, ``:446-452``): k and v
@@ -34,17 +55,21 @@ kernel here either: the scatter and the gather are index ops.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..dist.act_sharding import constrain
 from .layers import init_linear, rope
 
-__all__ = ["init_attn", "attention", "attn_forward", "decode_attention",
-           "decode_attention_ring", "attn_decode", "write_positions",
-           "paged_targets", "attn_decode_paged"]
+__all__ = ["init_attn", "attention", "flash_attention", "kv_bounds",
+           "attn_forward", "decode_attention", "decode_attention_ring",
+           "attn_decode", "write_positions", "paged_targets",
+           "attn_decode_paged"]
 
 NEG_INF = -1e30
+IMPLS = ("vjp", "scan", "unrolled")
 
 
 def init_attn(gen, d, heads, kv, hd, dtype, device, lead=()):
@@ -108,6 +133,256 @@ def _groups_for(q, k, v, *scales):
             *(s.repeat_interleave(r, dim=1) for s in scales))
 
 
+# -------------------------------------------------------- chunked attention
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_chunk: int = 512, kv_chunk: int = 512,
+                    impl: str = "vjp"):
+    """q: (b, sq, h, hd); k, v: (b, skv, g, hd), h = g*r -> (b, sq, h, hd).
+
+    ``window``: None, or a host int W: attend to (i-W, i] (a global
+    layer's ``NO_WINDOW`` reaches every chunk).  ``impl``: "vjp", "scan"
+    or "unrolled" (module docstring).  The chunks are clamped to the
+    lengths; a length that is not a whole number of them raises, and so
+    does a causal call whose chunks or lengths differ."""
+    sq, skv = q.shape[1], k.shape[1]
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, skv)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"pad sequences to chunks: {sq} queries in chunks "
+                         f"of {q_chunk}, {skv} keys in chunks of {kv_chunk}")
+    if causal and (q_chunk != kv_chunk or sq != skv):
+        raise ValueError(f"causal path assumes alignment: {sq} queries in "
+                         f"chunks of {q_chunk}, {skv} keys in chunks of "
+                         f"{kv_chunk}")
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl {impl!r}, expected one of {IMPLS}")
+    run = functools.partial(_flash_local, causal=causal, window=window,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk, impl=impl)
+    if hasattr(q, "device_mesh"):
+        return _flash_on_mesh(run, q, k, v)
+    return run(q, k, v)
+
+
+def _flash_local(q, k, v, *, causal, window, q_chunk, kv_chunk, impl):
+    if impl == "unrolled":
+        return _flash_fwd_chunks(q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                 skip=False)[0]
+    route = _FlashVJP if impl == "vjp" else _FlashScan
+    return route.apply(q, k, v, causal, window, q_chunk, kv_chunk)
+
+
+def _flash_on_mesh(run, q, k, v):
+    """``run`` on each device's shard: q's split of the batch and of the
+    heads kept, any other placement replicated (the sequence stays whole,
+    as in the reference's loop), k and v placed as q, their KV heads
+    repeated first where the heads' split cannot follow the groups
+    (``_groups_for``)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    k, v = _groups_for(q, k, v)
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+          for p in q.placements]     # a list: one output's placements
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    return local_map(run, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=mesh)(q, k, v)
+
+
+def kv_bounds(qi: int, nk: int, *, causal: bool, window, q_chunk: int,
+              kv_chunk: int) -> tuple[int, int]:
+    """The KV chunks [lo, hi) that query chunk ``qi`` visits on the vjp
+    and scan routes: up to the diagonal when causal, from the first chunk
+    the window reaches (the reference's ``bounds``,
+    ``attention.py:153-163``); every chunk when not causal."""
+    if not causal:
+        return 0, nk
+    lo = 0 if window is None else max(0, (qi * q_chunk - window) // kv_chunk)
+    return lo, qi + 1
+
+
+def _hidden(masks: dict, qi, ki, q_chunk, kv_chunk, causal, window, device):
+    """(q_chunk, kv_chunk) bool, True where a row of query chunk ``qi`` may
+    not see a column of KV chunk ``ki``; None when it sees them all.
+    ``masks`` keeps one a call for each offset between the chunks."""
+    i0, j0 = qi * q_chunk, ki * kv_chunk
+    if not ((causal and j0 + kv_chunk - 1 > i0) or (
+            window is not None and j0 <= i0 + q_chunk - 1 - window)):
+        return None
+    off = j0 - i0
+    if off not in masks:
+        i = torch.arange(q_chunk, device=device)[:, None]
+        j = torch.arange(kv_chunk, device=device)[None, :] + off
+        bad = torch.zeros((q_chunk, kv_chunk), dtype=torch.bool,
+                          device=device)
+        if causal:
+            bad |= j > i
+        if window is not None:
+            bad |= j <= i - window
+        masks[off] = bad
+    return masks[off]
+
+
+def _rows(t, chunk: int, g: int, dtype):
+    """(b, s, g*r, d) -> (s/chunk, b, g, r*chunk, d) in ``dtype``: each
+    chunk's rows of one KV group's r query heads as one matrix."""
+    b, s, h, d = t.shape
+    r = h // g
+    t = t.reshape(b, s // chunk, chunk, g, r, d).permute(1, 0, 3, 4, 2, 5)
+    return t.to(dtype, memory_format=torch.contiguous_format).reshape(
+        s // chunk, b, g, r * chunk, d)
+
+
+def _unrows(t, g: int, chunk: int):
+    """(b, g, r*chunk, d) -> (b, chunk, g*r, d), the inverse of one chunk
+    of ``_rows``."""
+    b, _, rc, d = t.shape
+    r = rc // chunk
+    return t.reshape(b, g, r, chunk, d).permute(0, 3, 1, 2, 4).reshape(
+        b, chunk, g * r, d)
+
+
+def _heads_major(t, dtype):
+    """(b, s, g, d) -> (b, g, s, d) in ``dtype``, contiguous."""
+    return t.permute(0, 2, 1, 3).to(dtype,
+                                    memory_format=torch.contiguous_format)
+
+
+def _mask(s, bad, r, q_chunk):
+    """Scores (b, g, r*q_chunk, kv_chunk) with ``bad`` set to NEG_INF."""
+    if bad is None:
+        return s
+    b, g, _, kc = s.shape
+    return s.view(b, g, r, q_chunk, kc).masked_fill(bad, NEG_INF).view(
+        b, g, r * q_chunk, kc)
+
+
+def _flash_fwd_chunks(q, k, v, *, causal, window, q_chunk, kv_chunk,
+                      skip=True):
+    """The shared forward (the reference's ``_flash_fwd_chunks``): (out
+    (b, sq, h, hd) in q's dtype, lse (b, g, r, sq) f32).  With ``skip``
+    each query chunk visits ``kv_bounds``' chunks; without, every chunk up
+    to the diagonal (the unrolled route).  Out of place throughout, so
+    that autograd can run through it."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    r = h // g
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    f32, dev = torch.float32, q.device
+    qs = _rows(q * hd ** -0.5, q_chunk, g, f32)      # scaled in q's dtype
+    kf, vf = _heads_major(k, f32), _heads_major(v, f32)
+    masks, outs, lses = {}, [], []
+    for qi in range(nq):
+        lo, hi = (kv_bounds(qi, nk, causal=causal, window=window,
+                            q_chunk=q_chunk, kv_chunk=kv_chunk) if skip
+                  else (0, qi + 1 if causal else nk))
+        m = torch.full((b, g, r * q_chunk, 1), NEG_INF, dtype=f32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, g, r * q_chunk, hd), dtype=f32, device=dev)
+        for ki in range(lo, hi):
+            cols = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            s = _mask(qs[qi] @ kf[:, :, cols].transpose(-1, -2),
+                      _hidden(masks, qi, ki, q_chunk, kv_chunk, causal,
+                              window, dev), r, q_chunk)
+            m2 = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m2)
+            corr = torch.exp(m - m2)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + p.to(v.dtype).to(f32) @ vf[:, :, cols]
+            m = m2
+        l = torch.clamp(l, min=1e-30)
+        outs.append(_unrows(acc / l, g, q_chunk).to(q.dtype))
+        lses.append((m + torch.log(l)).view(b, g, r, q_chunk))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)
+
+
+def _flash_bwd_chunks(q, k, v, out, lse, dout, *, causal, window, q_chunk,
+                      kv_chunk):
+    """The reference's ``_flash_vjp_bwd``: each visited chunk's
+    probabilities recomputed from ``lse``, O(chunk²) live memory; dk and dv
+    accumulated in f32 chunk by chunk; (dq, dk, dv) in their inputs'
+    dtypes.
+
+        delta_i = Σ_d dO_id · O_id
+        p_ij    = exp(s_ij − lse_i)
+        dv_j    = Σ_i p_ij dO_i          dp_ij = dO_i · v_j
+        ds_ij   = p_ij (dp_ij − delta_i)
+        dq_i    = scale Σ_j ds_ij k_j     dk_j = scale Σ_i ds_ij q_i
+
+    As in the reference, s is the product of the unscaled q times scale."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], k.shape[2]
+    r = h // g
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    f32, dev = torch.float32, q.device
+    scale = hd ** -0.5
+    qs, dos = _rows(q, q_chunk, g, f32), _rows(dout, q_chunk, g, f32)
+    deltas = _rows((dout.to(f32) * out.to(f32)).sum(-1, keepdim=True),
+                   q_chunk, g, f32)                   # (nq, b, g, r*qc, 1)
+    lses = lse.reshape(b, g, r, nq, q_chunk).permute(3, 0, 1, 2, 4).reshape(
+        nq, b, g, r * q_chunk, 1)
+    kf, vf = _heads_major(k, f32), _heads_major(v, f32)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    masks, dqs = {}, []
+    for qi in range(nq):
+        lo, hi = kv_bounds(qi, nk, causal=causal, window=window,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk)
+        qb, dob = qs[qi], dos[qi]
+        dq = torch.zeros_like(qb)
+        for ki in range(lo, hi):
+            cols = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            kb, vb = kf[:, :, cols], vf[:, :, cols]
+            s = _mask((qb @ kb.transpose(-1, -2)) * scale,
+                      _hidden(masks, qi, ki, q_chunk, kv_chunk, causal,
+                              window, dev), r, q_chunk)
+            p = torch.exp(s - lses[qi])
+            dv[:, :, cols] += p.transpose(-1, -2) @ dob
+            ds = p * (dob @ vb.transpose(-1, -2) - deltas[qi])
+            dq = dq + scale * (ds @ kb)
+            dk[:, :, cols] += scale * (ds.transpose(-1, -2) @ qb)
+        dqs.append(_unrows(dq, g, q_chunk))
+    contiguous = torch.contiguous_format
+    return (torch.cat(dqs, dim=1).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype, memory_format=contiguous),
+            dv.permute(0, 2, 1, 3).to(v.dtype, memory_format=contiguous))
+
+
+class _FlashVJP(torch.autograd.Function):
+    """The vjp route: the chunked forward, saving (q, k, v, out, lse), and
+    the hand-written chunked backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        out, lse = _flash_fwd_chunks(q, k, v, causal=causal, window=window,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.flags = dict(causal=causal, window=window, q_chunk=q_chunk,
+                         kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd_chunks(q, k, v, out, lse, dout, **ctx.flags),
+                None, None, None, None)
+
+
+class _FlashScan(torch.autograd.Function):
+    """The scan route: the chunked forward; a gradient asked of it raises,
+    as the reference's traced loop bounds refuse reverse mode."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        return _flash_fwd_chunks(q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)[0]
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise RuntimeError("flash_attention(impl='scan') is forward only: "
+                           "reverse-mode unsupported (use impl='vjp')")
+
+
 def _project(p, x, heads, kv, hd, src=None):
     """q, k, v projections, in x's dtype: q of x (b, s, d), k and v of
     ``src`` (b, t, d), x itself unless given (cross-attention)."""
@@ -129,12 +404,14 @@ def _out(p, o):
 
 
 def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
-                 window=None, enc=None, return_kv=False):
-    """Project -> rope -> attend -> project.  x: (b, s, d).  ``enc``
-    (b, F, d) switches to cross-attention against encoder states: k and v
-    are projected from ``enc``, only q is rotated, and nothing is masked.
-    With ``return_kv`` also the keys and the values, (b, s, kv, hd) each:
-    what a prefill writes into the cache."""
+                 window=None, enc=None, q_chunk=512, kv_chunk=512,
+                 return_kv=False, impl="vjp"):
+    """Project -> rope -> attend (``flash_attention`` by route ``impl``)
+    -> project.  x: (b, s, d).  ``enc`` (b, F, d) switches to
+    cross-attention against encoder states: k and v are projected from
+    ``enc``, only q is rotated, and nothing is masked.  With ``return_kv``
+    also the keys and the values, (b, s, kv, hd) each: what a prefill
+    writes into the cache."""
     q, k, v = _project(p, x, heads, kv, hd, src=enc)
     # heads claim 'model' when divisible; otherwise the batch spreads over
     # data AND model (batch-parallel attention)
@@ -144,7 +421,9 @@ def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
     q = rope(q, positions, theta)
     if enc is None:
         k = rope(k, positions, theta)
-    o = attention(q, k, v, causal=causal and enc is None, window=window)
+    o = flash_attention(q, k, v, causal=causal and enc is None,
+                        window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                        impl=impl)
     o = constrain(o, "?batch_plus", None, "heads", None)
     out = constrain(_out(p, o), "batch", None, None)
     return (out, (k, v)) if return_kv else out

@@ -9,11 +9,10 @@ The port runs all six (``models.model``).
 Every field of the reference's dataclass is kept, so the registry's configs
 and their ``smoke()`` reductions are the same values in both packages.
 ``seq_parallel`` places the residual stream on a mesh
-(``transformer._seq_parallel``) and ``zero1`` the optimizer moments
-(``dist.sharding.opt_state_specs``).  The port does not act on two:
-``attn_impl`` (one attention route, ``models/attention.py``) and
-``remat_policy`` (``remat`` recomputes each layer whole, the "nothing"
-policy).
+(``transformer._seq_parallel``), ``zero1`` the optimizer moments
+(``dist.sharding.opt_state_specs``), ``attn_impl`` picks the training
+forward's attention route (``attention.flash_attention``; a prefill takes
+"scan") and ``remat_policy`` what a remat unit keeps (``layers.remat``).
 """
 from __future__ import annotations
 

@@ -9,9 +9,12 @@ default).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..dist.act_sharding import constrain, current_mesh, use_mesh
 
@@ -27,6 +30,12 @@ __all__ = [
     "embed",
     "unembed",
 ]
+
+
+# The ops whose outputs remat_policy="dots" keeps: the matmuls with no
+# batch dims, which is what a matmul of a (b, s, d) activation by a 2-D
+# weight lowers to.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -61,20 +70,33 @@ def rope(x, positions, theta: float = 10000.0):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def remat(fn, *args):
-    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in the backward pass.  The recompute may
-    run on the autograd engine's device thread, which does not see the
-    forward's context, so on a mesh it re-enters the forward's mesh."""
+def remat(fn, *args, policy: str = "nothing"):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), by
+    ``policy``, the config's ``remat_policy`` (the reference's
+    ``_maybe_remat``): "nothing" saves nothing and recomputes the whole
+    unit in the backward pass; "dots" saves the outputs of the matmuls
+    with no batch dims (``_DOTS_SAVED``: the projections and the MLP, as
+    ``dots_with_no_batch_dims_saveable`` does) and recomputes the rest,
+    the attention's batched products included.  The recompute may run on
+    the autograd engine's device thread, which does not see the forward's
+    context, so on a mesh it re-enters the forward's mesh."""
+    if policy == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, list(_DOTS_SAVED))}
+    elif policy == "nothing":
+        kw = {}
+    else:
+        raise ValueError(f"remat_policy {policy!r}, expected 'nothing' or "
+                         "'dots'")
     mesh = current_mesh()
     if mesh is None:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
 
     def on_mesh(*a):
         with use_mesh(mesh):
             return fn(*a)
 
-    return checkpoint(on_mesh, *args, use_reentrant=False)
+    return checkpoint(on_mesh, *args, use_reentrant=False, **kw)
 
 
 def sharded_last(w) -> bool:

@@ -88,8 +88,8 @@ def _mamba_stack(cfg: ModelConfig, stacked, x, *, remat=False):
     """Training forward through the layers of a stacked tree; each layer a
     remat unit with ``remat``."""
     for pl in _unstack(stacked):
-        x = (_remat(_mamba_out, cfg, pl, x) if remat
-             else _mamba_out(cfg, pl, x))
+        x = (_remat(_mamba_out, cfg, pl, x, policy=cfg.remat_policy)
+             if remat else _mamba_out(cfg, pl, x))
     return x
 
 
@@ -153,6 +153,7 @@ def _shared_attn_fwd(cfg: ModelConfig, shared, x, positions, *,
     ``collect_kv`` also the call's (k, v), (b, s, kv, hd) each."""
     h = rms_norm(x, shared["ln1"], cfg.norm_eps)
     res = attn_forward(shared["attn"], h, positions, return_kv=collect_kv,
+                       impl="scan" if collect_kv else cfg.attn_impl,
                        **_attn_kwargs(cfg))
     o, kv = res if collect_kv else (res, None)
     if collect_kv:
@@ -179,7 +180,8 @@ def hybrid_logits(cfg: ModelConfig, params, batch):
     x = embed(batch["tokens"], params["embed"], _dtype(cfg))
     positions = _positions(x)
     for gp in _unstack(params["groups"]):
-        x = (_remat(_group, cfg, params["shared"], gp, x, positions)
+        x = (_remat(_group, cfg, params["shared"], gp, x, positions,
+                   policy=cfg.remat_policy)
              if cfg.remat else _group(cfg, params["shared"], gp, x,
                                       positions))
     if "tail" in params:

@@ -7,11 +7,14 @@ Parameters keep the reference's tree, leaf names and shapes: the layers are
 stacked on a leading L axis, as ``jax.vmap`` stacks them, so the gradient
 codec's wire buffer holds the leaves in the reference's order.  The stack
 is a Python loop over the layers, each reading its slice of the stacked
-leaves; gemma3's 5:1 local:global pattern is a per-layer window.  With
-``cfg.remat`` each training layer runs under ``torch.utils.checkpoint`` and
-is recomputed in the backward pass.  The moe family's blocks hold a
-``moe`` subtree in place of ``mlp`` (``models/moe.py``), and the stack
-sums the blocks' aux losses; the vlm family prepends ``batch["patches"]``
+leaves; gemma3's 5:1 local:global pattern is a per-layer window.  The
+training forward attends by ``cfg.attn_impl``, a prefill by the "scan"
+route (``attention.flash_attention``).  With ``cfg.remat`` each training
+layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward pass, but for what ``cfg.remat_policy`` keeps
+(``layers.remat``).  The moe family's blocks hold a ``moe`` subtree in
+place of ``mlp`` (``models/moe.py``), and the stack sums the blocks' aux
+losses; the vlm family prepends ``batch["patches"]``
 (b, P, d), cast to the compute dtype, to the embedded tokens of a training
 forward or a prefill: the logits cover the text positions only, and the
 cache holds the patches at positions 0..P-1.
@@ -144,7 +147,7 @@ def _block(cfg: ModelConfig, pl, x, positions, window):
     x = _seq_parallel(cfg, x)
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     x = x + attn_forward(pl["attn"], h, positions, window=window,
-                         **_attn_kwargs(cfg))
+                         impl=cfg.attn_impl, **_attn_kwargs(cfg))
     return _mlp(cfg, pl, x)
 
 
@@ -158,7 +161,7 @@ def _block_kv(cfg: ModelConfig, pl, x, positions, window):
     x = _seq_parallel(cfg, x)
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     o, kv = attn_forward(pl["attn"], h, positions, window=window,
-                         return_kv=True, **_attn_kwargs(cfg))
+                         return_kv=True, impl="scan", **_attn_kwargs(cfg))
     return _mlp(cfg, pl, x + o)[0], _cache_kv(kv)
 
 
@@ -192,7 +195,8 @@ def decoder_stack(cfg: ModelConfig, params, x, positions, *,
             ks.append(k)
             vs.append(v)
         elif cfg.remat:
-            x, a = remat(_block, cfg, pl, x, positions, window)
+            x, a = remat(_block, cfg, pl, x, positions, window,
+                         policy=cfg.remat_policy)
         else:
             x, a = _block(cfg, pl, x, positions, window)
         if a is not None:
@@ -225,8 +229,11 @@ def decoder_only_logits(cfg: ModelConfig, params, batch):
 
 # ------------------------------------------------------------------ serving
 def _pad_seq(t, pad: int):
-    """Zero-pad axis 2 (the sequence axis of an (L, b, s, g, hd) stack)."""
-    return F.pad(t, (0, 0, 0, 0, 0, pad))
+    """Zero-pad axis 2 (the sequence axis of an (L, b, s, g, hd) stack);
+    no op at all for no padding (torch 2.11's DTensor cannot plan a pad
+    of a split sequence axis, and a prefill as long as its cache needs
+    none)."""
+    return F.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
 
 
 def decoder_only_prefill(cfg: ModelConfig, params, batch, cache_len: int):
@@ -284,7 +291,7 @@ def _windowed_cache(cfg: ModelConfig, k_new, v_new, s: int, cache_len: int):
     lv = v_new[lidx][:, :, max(0, s - W):]
     if s < W:  # short prompts: slots 0..s-1 are just positions 0..s-1
         lk, lv = _pad_seq(lk, W - s), _pad_seq(lv, W - s)
-    else:      # the last W tokens land at slots (s-W+i) mod W: a roll
+    elif s % W:  # the last W tokens land at slots (s-W+i) mod W: a roll
         lk = torch.roll(lk, s % W, dims=2)
         lv = torch.roll(lv, s % W, dims=2)
     return {"gk": gk, "gv": gv, "lk": lk, "lv": lv, "len": s}
@@ -470,7 +477,7 @@ def _ffn(cfg: ModelConfig, ln, mlp, x):
 def _enc_block(cfg: ModelConfig, pl, x, positions):
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     x = x + attn_forward(pl["attn"], h, positions, causal=False,
-                         **_attn_kwargs(cfg))
+                         impl=cfg.attn_impl, **_attn_kwargs(cfg))
     return _ffn(cfg, pl["ln2"], pl["mlp"], x)
 
 
@@ -482,7 +489,8 @@ def encode(cfg: ModelConfig, params, frames):
     positions = torch.arange(s, device=x.device).expand(b, s)
     for pl in _unstack(params["enc_layers"]):
         if cfg.remat:
-            x = remat(_enc_block, cfg, pl, x, positions)
+            x = remat(_enc_block, cfg, pl, x, positions,
+                      policy=cfg.remat_policy)
         else:
             x = _enc_block(cfg, pl, x, positions)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -494,13 +502,14 @@ def _dec_block(cfg: ModelConfig, pl, x, positions, enc, collect_kv=False):
     akw = _attn_kwargs(cfg)
     h = rms_norm(x, pl["ln1"], cfg.norm_eps)
     res = attn_forward(pl["self_attn"], h, positions, return_kv=collect_kv,
-                       **akw)
+                       impl="scan" if collect_kv else cfg.attn_impl, **akw)
     o, kv = res if collect_kv else (res, None)
     if collect_kv:
         kv = _cache_kv(kv)
     x = x + o
     h2 = rms_norm(x, pl["ln2"], cfg.norm_eps)
-    x = x + attn_forward(pl["cross_attn"], h2, positions, enc=enc, **akw)
+    x = x + attn_forward(pl["cross_attn"], h2, positions, enc=enc,
+                         impl=cfg.attn_impl, **akw)
     x = _ffn(cfg, pl["ln3"], pl["mlp"], x)
     return (x, kv) if collect_kv else x
 
@@ -517,7 +526,8 @@ def _dec_stack(cfg: ModelConfig, params, x, positions, enc, *,
             ks.append(k)
             vs.append(v)
         elif cfg.remat:
-            x = remat(_dec_block, cfg, pl, x, positions, enc)
+            x = remat(_dec_block, cfg, pl, x, positions, enc,
+                      policy=cfg.remat_policy)
         else:
             x = _dec_block(cfg, pl, x, positions, enc)
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)

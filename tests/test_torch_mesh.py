@@ -16,7 +16,9 @@ gemma3-1b smoke model (ZeRO-1 on), and report what each case needs:
     restored onto (4, 1) with ``shardings=``: equal values, the new mesh's
     placements;
   * ``dist.sharding.local_slices`` against DTensor's own cut of uneven and
-    nested shards.
+    nested shards;
+  * ``flash_attention``'s three routes with q's heads split over "model"
+    against the same calls in one process.
 """
 import json
 import os
@@ -153,6 +155,39 @@ for pl in ((Shard(0), Shard(1)), (Shard(0), Shard(0)), (Shard(1), Shard(1)),
     want = distribute_tensor(t, m22, pl).to_local()
     cuts.append(torch.equal(want, t[sh.local_slices((5, 7), m22, pl)]))
 out["local_slices"] = cuts
+# -- flash_attention's routes with the heads split over "model"
+from repro_torch.dist.act_sharding import use_mesh
+from repro_torch.models.attention import IMPLS, flash_attention
+rng = np.random.default_rng(1)
+flash = {}
+for g in (2, 1):
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 128, n, 16)).astype(np.float32)) for n in (4, g, g, 4))
+    kv_pl = (Shard(0), Shard(2) if g == 2 else Replicate())
+    for impl in IMPLS:
+        for causal, window in ((True, None), (True, 40), (False, None)):
+            kw = dict(causal=causal, window=window, q_chunk=32, kv_chunk=32,
+                      impl=impl)
+            grad = impl != "scan"
+            one = [t.clone().requires_grad_(grad) for t in (q, k, v)]
+            want = flash_attention(*one, **kw)
+            placed = [distribute_tensor(t, m22, pl).detach()
+                      .requires_grad_(grad) for t, pl in
+                      ((q, (Shard(0), Shard(2))), (k, kv_pl), (v, kv_pl))]
+            with use_mesh(m22):
+                got = flash_attention(*placed, **kw)
+            def rel(a, b):      # the largest error over the largest |b|
+                return float((a - b).abs().max() / b.abs().max())
+            errs = [rel(got.full_tensor(), want)]
+            if grad:
+                want.backward(do)
+                (got * distribute_tensor(do, m22, got.placements)
+                 ).sum().backward()
+                errs += [rel(a.grad.full_tensor(), b.grad)
+                         for a, b in zip(placed, one)]
+            flash[f"g{g}/{impl}/{causal}/{window}"] = [
+                str(got.placements), errs]
+out["flash"] = flash
 json.dump(out, open(f"{d}/out{rank}.json", "w"))
 dist.destroy_process_group()
 '''
@@ -202,6 +237,22 @@ def test_zero1_state_restores_onto_another_mesh(ranks, module):
         step, equal, placed, local = out["restore_" + module]
         assert step == 2 and equal and placed
         assert local == [128, 128]    # embed (512, 128): vocab over 4
+
+
+def test_flash_routes_on_2x2_match_no_mesh(ranks):
+    """Each route of ``flash_attention``, causal with and without a window
+    and not causal, on (data 2, model 2) with q's heads split two ways
+    (and for g = 1 the KV heads repeated to follow them): the output placed
+    as q, and it and, for vjp and unrolled, dq, dk, dv as one process
+    computes them, within ``test_torch_models.py``'s f32 tolerance: 1e-5
+    (2e-5 for gradients) of the largest magnitude.  The shards' matmuls
+    sum in other orders than the whole batch's."""
+    for out in ranks:
+        assert len(out["flash"]) == 2 * 3 * 3
+        for case, (placements, errs) in out["flash"].items():
+            assert placements == "(Shard(dim=0), Shard(dim=2))", case
+            assert errs[0] <= 1e-5, (case, errs)
+            assert all(e <= 2e-5 for e in errs[1:]), (case, errs)
 
 
 def test_local_slices_match_dtensor(ranks):

@@ -117,9 +117,14 @@ def measure(cs, cfg, params, want, opt, calls, dev) -> dict:
     prefill = calls[:n_chunks * L]          # chunk by chunk, layer by layer
     calls.clear()
     with torch.inference_mode():
-        toks = torch.tensor([r.prompt + r.out[:-1]], device=dev)
+        # padded to whole attention chunks: at the no-drop capacity the
+        # pads take no token's place, and causality keeps them out of the
+        # compared positions
+        seq = r.prompt + r.out[:-1]
+        toks = torch.tensor([seq + [0] * (-len(seq) % cs.ATTN_CHUNK)],
+                            device=dev)
         fwd, _ = train_logits(cfg, params, {"tokens": toks})
-    fwd = fwd[0, plen - 1:].float()
+    fwd = fwd[0, plen - 1:plen - 1 + len(r.out)].float()
     diff = (got - fwd).abs().amax(dim=-1)
     scale = float(fwd.abs().max())
     bound = cs.SERVE_LOGIT_TOL * scale
