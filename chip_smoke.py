@@ -155,7 +155,10 @@ prints one JSON object per line:
                codec_encode launch per admission and per retirement, the
                kernel on one real fingerprint against its plain version bit
                for bit; three requests re-run alone through a fresh engine
-               give the same tokens and KV rows bit for bit; two requests'
+               give the same tokens and KV rows bit for bit, and again
+               through a fresh engine with pow2 prefill buckets (one padded
+               extend call a prompt): the chunk loop's tokens and KV rows
+               bit for bit, every fingerprint verified; two requests'
                engine logits (the last prompt position and every decode
                step) against a teacher-forced ``train_logits`` over prompt +
                out[:-1], within SERVE_LOGIT_TOL of its largest |logit|, and
@@ -209,6 +212,22 @@ prints one JSON object per line:
                against them and gives the cold run's tokens bit for bit.
                The pool reckoned beside the bytes written; the seconds of
                ``save_warm_state`` and ``load_warm_state``;
+6h. replicas — slice 12, offline replicas over ranks: REPLICA_ARGS
+               (gemma3-1b at full width and depth, bf16 compute,
+               ``--rns-verify``, 4 slots of 2048 a replica, pow2 buckets, 8
+               Poisson(512) prompts with 32 new tokens, all at t = 0)
+               through the serve CLI in 2 processes on the one card with
+               torchrun's environment: a gloo world of 2 for the
+               controller's exchanges, ``--replicas 2`` of one rank each
+               (a one-rank NCCL group a replica).  Each process writes its
+               result and log under chiprun_out/replicas/; one that fails
+               fails the phase.  Required: every request served once,
+               every fingerprint verified, the census unchanged on both
+               ranks, and rank 0's tokens for every rid and ``dispatched``
+               equal to the one-process ``OfflineInference(replicas=2)``'s
+               on the same card and workload.  Measured: wall s and
+               tokens/s of both, the exchange's host ms a tick (median,
+               p99) on each rank, each process's peak device memory;
 5c. moe train — slice 7, after a check that TF32 is off for f32 matmuls
                (the MoE router's expert choice): qwen2-moe-a2.7b at full
                width cut to 2 layers through the training CLI, batch 2
@@ -288,8 +307,9 @@ prints one JSON object per line:
 8. kernels   — one line listing every ported kernel, its launches summed
                over the main paths (slice 1, the codec steps, the
                full-width training runs, the crypto lane, the serve runs,
-               the paged runs, the warm restart runs, the moe training and
-               serve runs, the ssm, hybrid and encdec training runs; the
+               the paged runs, the warm restart runs, the replica ranks of
+               6h, the moe training and serve runs, the ssm, hybrid and
+               encdec training runs; the
                checkpointed training runs and train_e2e launch none) and
                one
                timing
@@ -511,6 +531,21 @@ PAGED_LOADGEN = PAGED_ENGINE + (
     "--mode", "loadgen", "--page-size", "512", "--qps-lo", "0.5",
     "--qps-hi", "16", "--qps-iters", "2", "--phase-requests", "8",
     "--prompt-mean", "256", "--max-new", "16")
+# Phase 6h, offline replicas over ranks: two processes on the one card
+# with torchrun's environment, a gloo world of 2 for the controller's
+# exchanges and replicas = 2 of one rank each (a one-rank NCCL group a
+# replica: NCCL refuses two ranks of one communicator on one card);
+# gemma3-1b at full width and depth, bf16 compute, 4 slots of 2048 a
+# replica, pow2 buckets as in 6c, 8 Poisson(512) prompts with 32 new
+# tokens, all at t = 0; seed 0.
+REPLICA_WORLD = 2
+REPLICA_ARGS = ("--arch", "gemma3-1b", "--no-smoke", "--slots", "4",
+                "--cache-len", "2048", "--prefill-chunk", "256",
+                "--requests", "8", "--prompt-mean", "512", "--max-new",
+                "32", "--seed", "0", "--mode", "offline", "--buckets",
+                "pow2", "--replicas", "2", "--rns-verify", "--device",
+                DEVICE)
+REPLICA_TIMEOUT = 300      # seconds a rank's process may take
 # Slice 7, the moe and vlm families.  qwen2-moe-a2.7b (hf:Qwen/Qwen1.5-MoE-
 # A2.7B: 24 layers, d 2048, 16 heads, 60 routed experts top-4 of ff 1408
 # plus 4 shared, vocab 151,936; 14,004,422,656 f32 parameters, 56.0 GB) at
@@ -2812,6 +2847,7 @@ def serve_main_path(dev, max_err) -> dict:
     from repro_torch.kernels.codec_encode import (codec_encode_kernel_call,
                                                   codec_encode_plain)
     from repro_torch.serve.batcher import ContinuousBatcher
+    from repro_torch.serve.offline import pow2_buckets
     from repro_torch.serve.scheduler import Request
 
     run = serve_run(SERVE_ARGS, keep_rows=SERVE_SOLO_RIDS,
@@ -2879,6 +2915,40 @@ def serve_main_path(dev, max_err) -> dict:
             "serve: the solo engine's census")
     del solo
 
+    # bucketed prefill on the batched cache: the same requests alone on a
+    # fresh engine with pow2 buckets (one padded extend call a prompt),
+    # tokens and KV rows bit for bit against the chunk loop's
+    bucketed = ContinuousBatcher(
+        cfg, params, n_slots=eng.sched.n_slots, cache_len=eng.sched.cache_len,
+        prefill_chunk=eng.prefill_chunk, rns_verify=True,
+        prefill_buckets=pow2_buckets(eng.sched.cache_len))
+    bucket_rows = []
+    for rid in SERVE_SOLO_RIDS:
+        r = done[rid]
+        alone = Request(rid=rid, prompt=list(r.prompt), max_new=r.max_new)
+        bucketed.submit(alone)
+        bucketed.run_to_completion()
+        end = len(r.prompt) + len(r.out) - 1
+        rows = tuple(bucketed.cache[n][:, alone.slot_index, :end]
+                     for n in ("k", "v"))
+        same_tokens = alone.out == r.out
+        same_rows = all(torch.equal(a, b)
+                        for a, b in zip(rows, probe.rows[rid]))
+        bucket_rows.append({
+            "rid": rid, "plen": len(r.prompt),
+            "bucket": bucketed._pick_bucket(len(r.prompt)),
+            "tokens_equal": same_tokens, "kv_rows_bitwise": same_rows,
+            "max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(rows, probe.rows[rid]))})
+        require(same_tokens and same_rows,
+                f"serve: rid {rid}'s bucketed prefill differs from the "
+                f"chunk loop: {bucket_rows[-1]}")
+        require(bucketed.verify_log[rid],
+                f"serve: rid {rid} bucketed verifies")
+    require(bucketed.bucket_stats()["fallbacks"] == 0,
+            f"serve: bucketed fallbacks {bucketed.bucket_stats()}")
+    del bucketed
+
     # cache consistency: the engine's logits against a teacher-forced
     # forward over prompt + out[:-1]
     consistency = [teacher_forced(cfg, params, done[rid],
@@ -2906,7 +2976,8 @@ def serve_main_path(dev, max_err) -> dict:
         "rns": rns, "launches": run["launches"],
         **{k: run[k] for k in ("memory_allocated_at_start",
                                "max_memory_allocated", "peak_memory_of_run")},
-        "invariance": invariance, "consistency": consistency}
+        "invariance": invariance, "bucketed_vs_chunk_loop": bucket_rows,
+        "consistency": consistency}
     del eng, probe, run, params
 
     # the mixed families: a short llm,crypto run
@@ -3195,6 +3266,157 @@ def paged_main_path(dev, max_err) -> dict:
                     **mono_times},
         "offline": offline, "mixed": mixed, "loadgen": loadgen,
         "launches": implied(**total)}
+
+
+# ------------------------------- slice 12: offline replicas over ranks
+def replica_rank(rank: int, out_dir: str) -> int:
+    """One rank of phase 6h, started by ``replicas_main_path`` with
+    torchrun's environment: loads the kernels the parent built, drives
+    ``launch.serve.main(REPLICA_ARGS)`` (which makes the gloo world from
+    that environment and takes the card) with the launch counts set to 0
+    just before and read just after, and writes its result to
+    ``out_dir/rank<r>.json``: its launches, peak device memory, census,
+    its own exchange times, and on rank 0 the report and every request's
+    tokens.  It prints nothing of its own; its output goes to a log."""
+    import torch
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.offline import sample_stats
+
+    build.load()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report, harness = launch_serve.main(list(REPLICA_ARGS))
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(ops)
+    harness.require_steady_state()
+    rs = harness.replica_set
+    ms = rs.exchange_ms          # this process's one run
+    out = {"rank": rank, "seconds": seconds, "launches": launches,
+           "replica": rs.replica, "steady_state": harness.steady_state_ok(),
+           "device": str(harness.devices[0]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "exchange_ms": sample_stats(ms), "report": report,
+           "tokens": {str(r.rid): list(r.out)
+                      for r, _ in harness.completions}}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def replicas_main_path(dev) -> dict:
+    """Phase 6h: REPLICA_ARGS through the serve CLI in REPLICA_WORLD
+    processes on the one card (``replica_rank``, torchrun's environment on
+    a free local port), two replicas of one rank behind the controller on
+    rank 0; a process that fails, or outlasts REPLICA_TIMEOUT, fails the
+    phase.  Then the same arguments in this process, the one-process
+    ``OfflineInference(replicas=2)`` on the card.  Required: every request
+    served once, every fingerprint verified, the census unchanged on every
+    rank, rank 0's tokens for every rid and ``dispatched`` equal to the
+    one-process run's.  Measured: wall s and tokens/s of both, each rank's
+    exchange ms a tick, each process's peak device memory."""
+    import socket
+
+    out_dir = os.path.join(ROOT, "chiprun_out", "replicas")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE=str(REPLICA_WORLD),
+               LOCAL_WORLD_SIZE=str(REPLICA_WORLD))
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(REPLICA_WORLD):
+        logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--replica-rank",
+             str(r), out_dir], cwd=ROOT, stdout=logs[-1],
+            stderr=subprocess.STDOUT,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
+    try:
+        deadline = time.monotonic() + REPLICA_TIMEOUT
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(1.0,
+                                              deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks_seconds = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            require(False, f"replicas: rank {r} ended with {rc}:\n{tail}")
+    res = []
+    for r in range(REPLICA_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    rep = res[0]["report"]
+    n_req = int(REPLICA_ARGS[REPLICA_ARGS.index("--requests") + 1])
+    max_new = int(REPLICA_ARGS[REPLICA_ARGS.index("--max-new") + 1])
+    require(rep["requests"] == n_req and rep["tokens_out"] == n_req * max_new
+            and len(res[0]["tokens"]) == n_req,
+            f"replicas: {rep['requests']} requests, {rep['tokens_out']} "
+            f"tokens")
+    require(rep["rns"] == {"slots_verified": n_req, "slots_failed": 0},
+            f"replicas: rns {rep['rns']}")
+    require(rep["retrace_free"] and all(x["steady_state"] for x in res),
+            f"replicas: census {rep['jit_traces']} against warmup "
+            f"{rep['warmup']['jit_traces']}")
+    require(rep["n_chips"] == REPLICA_WORLD and rep["replicas"] == 2
+            and [x["replica"] for x in res] == list(range(REPLICA_WORLD)),
+            f"replicas: {rep['n_chips']} chips, replicas "
+            f"{[x['replica'] for x in res]}")
+
+    # the one-process harness: two replicas on this card, the same workload
+    one = serve_run(REPLICA_ARGS)
+    orep, harness = one["report"], one["engine"]
+    want = {str(r.rid): list(r.out) for r, _ in harness.completions}
+    differ = sorted(k for k in want if res[0]["tokens"].get(k) != want[k])
+    require(not differ and len(want) == n_req,
+            f"replicas: rids {differ} differ from the one-process run's")
+    require(rep["dispatched"] == orep["dispatched"],
+            f"replicas: dispatched {rep['dispatched']} against "
+            f"{orep['dispatched']} in one process")
+    require(orep["retrace_free"] and orep["rns"]["slots_failed"] == 0,
+            f"replicas: one-process run {orep['rns']}")
+    del harness, one["engine"]
+    launches = Counter()
+    for x in res:
+        launches.update(x["launches"])
+    return {
+        "args": list(REPLICA_ARGS), "world": REPLICA_WORLD,
+        "seconds": time.perf_counter() - t0, "ranks_seconds": ranks_seconds,
+        "wall_s": rep["wall_s"], "tok_per_s": rep["tok_per_s"],
+        "engine_steps": rep["engine_steps"], "dispatched": rep["dispatched"],
+        "ttft_s": rep["ttft_s"], "latency_s": rep["latency_s"],
+        "buckets": rep["buckets"], "control": rep["control"],
+        "exchange_ms_by_rank": [x["exchange_ms"] for x in res],
+        "max_memory_allocated_by_rank": [x["max_memory_allocated"]
+                                         for x in res],
+        "rank_seconds": [x["seconds"] for x in res],
+        "devices": [x["device"] for x in res],
+        "rns": rep["rns"], "jit_traces": rep["jit_traces"],
+        "tokens_equal_one_process": not differ,
+        "one_process": {"seconds": one["seconds"], "wall_s": orep["wall_s"],
+                        "tok_per_s": orep["tok_per_s"],
+                        "engine_steps": orep["engine_steps"],
+                        "dispatched": orep["dispatched"],
+                        "n_chips": orep["n_chips"],
+                        "peak_memory_of_run": one["peak_memory_of_run"],
+                        "launches": one["launches"]},
+        "launches": implied(**launches)}
 
 
 # ------------------------------------------- slice 7: the moe and vlm families
@@ -4205,6 +4427,23 @@ def main() -> int:
           f"revalidating, {warm['warm']['dedup_hits']} dedup hits, tokens "
           f"equal", flush=True)
 
+    # --------------------- 6h. replicas: offline replicas over ranks
+    reps = replicas_main_path(dev)
+    for k in launches:
+        launches[k] += reps["launches"][k]
+    emit({"phase": "replicas", "step": "total", **reps, "card": card})
+    one = reps["one_process"]
+    print(f"replicas: gemma3-1b full width, {card}: {reps['world']} "
+          f"processes, 2 replicas of one rank: wall {reps['wall_s']:.3f} s, "
+          f"{reps['tok_per_s']:.1f} tokens/s (one process "
+          f"{one['wall_s']:.3f} s, {one['tok_per_s']:.1f} tokens/s), "
+          f"dispatched {reps['dispatched']}, exchange "
+          f"{reps['control']['exchange_ms']['p50']:.3f} ms median / "
+          f"{reps['control']['exchange_ms']['p99']:.3f} ms p99 over "
+          f"{reps['control']['exchanges']} ticks on rank 0, peak memory "
+          f"{reps['max_memory_allocated_by_rank']} bytes; phase "
+          f"{reps['seconds']:.1f} s", flush=True)
+
     # --- 5c, 5d, 6d, 6e, 6f: slices 7 and 8, the moe, vlm, ssm, hybrid and
     # encdec families
     # a rounded router flips experts near ties: nothing may turn TF32 on
@@ -4522,4 +4761,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--replica-rank"]:   # a rank of phase 6h
+        sys.exit(replica_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -65,6 +65,17 @@ counters.
 ``main`` returns ``(report, engine)`` in ``sim`` and ``(report, harness)``
 (the ``OfflineInference``) in the other modes.
 
+Under ``torchrun --nproc-per-node W`` the ``offline`` and ``loadgen`` modes
+run ``--replicas n`` replicas of W/n ranks each (``serve.offline``'s
+``replica_meshes``): each rank takes ``cuda:LOCAL_RANK`` (modulo the cards
+there are, so that W ranks can share one card as W one-rank replicas),
+the world group is gloo, for the controller's exchanges with rank 0, and
+each replica's mesh is an NCCL group; only rank 0 prints the report, and
+``main`` returns ``(None, harness)`` on the others:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mode offline \
+        --replicas 2 --device cpu --cache-len 64 --prefill-chunk 8
+
 The engine serves the dense and moe families.  The archs of the other
 families (vlm, ssm, hybrid, encdec), which the engine gates out, fall
 back in ``sim`` to ``simulate_single_shot``: one request at a time, a
@@ -104,6 +115,7 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..models import decode_step, init_params, prefill
@@ -482,10 +494,27 @@ def _parse_buckets(spec: str, cache_len: int, ap) -> tuple | None:
     return buckets
 
 
+def _ranks(args) -> bool:
+    """Under torchrun with several ranks (``--mode offline|loadgen``): make
+    the gloo world group unless one runs, and put this rank on
+    ``cuda:LOCAL_RANK`` modulo the cards when ``--device cuda`` names no
+    card.  True when a group of several ranks runs."""
+    if int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return dist.is_initialized() and dist.get_world_size() > 1
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", init_method="env://")
+    if args.device == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        args.device = f"cuda:{local % max(1, torch.cuda.device_count())}"
+        torch.cuda.set_device(args.device)
+    return True
+
+
 def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng, window):
     """``--mode offline|loadgen``: the wall-clock saturation harness
     (DESIGN.md §16) instead of the tick-clock replay, ``window`` stepped
-    once a loop iteration.  Returns ``(report, harness)``."""
+    once a loop iteration.  Returns ``(report, harness)``; over ranks,
+    ``(None, harness)`` on every rank but 0, which alone prints."""
     buckets = _parse_buckets(args.buckets, args.cache_len, ap)
     harness = OfflineInference(
         cfg, params, n_slots=args.slots, cache_len=args.cache_len,
@@ -497,9 +526,11 @@ def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng, window):
         crypto_slots=args.crypto_slots, crypto_ctx=crypto_ctx,
         crypto_chunk=args.crypto_chunk,
     )
+    root = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if root else (lambda *a, **k: None)
     warm = harness.warmup()
-    print(f"# warmup: {len(warm['warmed_plens'])} prefill width(s) x "
-          f"{warm['replicas']} replica(s) reached: {warm['jit_traces']}")
+    say(f"# warmup: {len(warm['warmed_plens'])} prefill width(s) x "
+        f"{warm['replicas']} replica(s) reached: {warm['jit_traces']}")
     harness.on_step = window.step
     report = {
         "arch": cfg.name,
@@ -514,7 +545,7 @@ def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng, window):
         if args.mode == "offline":
             for r in reqs:
                 r.arrival = 0.0   # offline scenario: all available at t=0
-            report.update(harness.run(reqs))
+            report.update(harness.run(reqs) or {})
             harness.require_steady_state()
             crypto_done = [r for r, _ in harness.completions
                            if getattr(r, "family", "llm") == "crypto"]
@@ -548,9 +579,11 @@ def _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng, window):
                 phase_requests=args.phase_requests)
             harness.require_steady_state()
             report.update(out)
-            print(f"# loadgen: {out['note']}")
+            say(f"# loadgen: {out['note']}")
     finally:
         window.close()
+    if not root:
+        return None, harness
     if window.enabled:
         report["profile"] = {"artifact": window.artifact,
                              "captured_steps": window.captured}
@@ -594,6 +627,12 @@ def main(argv=None):
                      f"{','.join(FAMILIES)}; got {args.families!r}")
     if args.crypto_requests and not args.crypto_slots:
         ap.error("--crypto-requests needs --crypto-slots >= 1")
+    made = args.mode != "sim" and not dist.is_initialized() \
+        and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    ranked = _ranks(args) if args.mode != "sim" else False
+    if args.mode == "sim" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        ap.error("--mode sim runs in one process; replicas over ranks "
+                 "need --mode offline or loadgen")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -636,12 +675,17 @@ def main(argv=None):
         os.path.dirname(os.path.abspath(args.report)) if args.report
         else "."
     )
-    window = ProfilerWindow(args.profile_start_step, args.profile_steps,
-                            profdir, label=f"serve_{args.mode}",
-                            device=args.device)
+    window = ProfilerWindow(
+        args.profile_start_step if not ranked or dist.get_rank() == 0
+        else -1, args.profile_steps, profdir, label=f"serve_{args.mode}",
+        device=args.device)
     if args.mode != "sim":
-        return _offline_main(args, ap, cfg, params, reqs, crypto_ctx, rng,
-                             window)
+        try:
+            return _offline_main(args, ap, cfg, params, reqs, crypto_ctx,
+                                 rng, window)
+        finally:
+            if made:
+                dist.destroy_process_group()
     try:
         engine = ContinuousBatcher(
             cfg, params, n_slots=args.slots, cache_len=args.cache_len,

@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from ..dist.act_sharding import constrain
-from .layers import init_linear, rope
+from .layers import init_linear, on_mesh, on_shards, rope, split_on
 
 __all__ = ["init_attn", "attention", "flash_attention", "kv_bounds",
            "attn_forward", "decode_attention", "decode_attention_ring",
@@ -178,15 +178,12 @@ def _flash_on_mesh(run, q, k, v):
     repeated first where the heads' split cannot follow the groups
     (``_groups_for``)."""
     from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
 
-    mesh = q.device_mesh
     k, v = _groups_for(q, k, v)
     pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
           for p in q.placements]     # a list: one output's placements
-    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
-    return local_map(run, out_placements=pl, in_placements=(pl, pl, pl),
-                     device_mesh=mesh)(q, k, v)
+    return on_shards(run, q.device_mesh, [(t, pl, ()) for t in (q, k, v)],
+                     pl)
 
 
 def kv_bounds(qi: int, nk: int, *, causal: bool, window, q_chunk: int,
@@ -383,17 +380,46 @@ class _FlashScan(torch.autograd.Function):
                            "reverse-mode unsupported (use impl='vjp')")
 
 
-def _project(p, x, heads, kv, hd, src=None):
+def _project(p, x, src=None):
     """q, k, v projections, in x's dtype: q of x (b, s, d), k and v of
     ``src`` (b, t, d), x itself unless given (cross-attention)."""
-    dt = x.dtype
-    b, s, d = x.shape
     src = x if src is None else src
-    t = src.shape[1]
-    q = (x @ p["wq"].to(dt).reshape(d, heads * hd)).view(b, s, heads, hd)
-    k = (src @ p["wk"].to(dt).reshape(d, kv * hd)).view(b, t, kv, hd)
-    v = (src @ p["wv"].to(dt).reshape(d, kv * hd)).view(b, t, kv, hd)
-    return q, k, v
+    return _proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"])
+
+
+def _proj(x, w):
+    """x (b, s, d) times w (d, n, hd) -> (b, s, n, hd) in x's dtype; an x
+    split along its sequence on a mesh projects on each device's shard
+    (``_proj_on_mesh``)."""
+    if split_on(x, 1):
+        return _proj_on_mesh(x, w)
+    b, s, d = x.shape
+    n, hd = w.shape[1], w.shape[2]
+    return (x @ w.to(x.dtype).reshape(d, n * hd)).view(b, s, n, hd)
+
+
+def _proj_on_mesh(x, w):
+    """``_proj`` of an x split along its sequence, on each device's shard
+    under ``local_map``: torch 2.11's DTensor refuses the product's
+    flattening of (b, s) when s is split ("Attempted to flatten multiple
+    dimensions").  w keeps a split of its heads; x keeps its batch or
+    sequence split where w is whole and is otherwise gathered whole; the
+    output is split as both.  The gradients of x (over the heads' split)
+    and of w (over x's) are partial sums on each shard, summed
+    (``on_shards``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    w_pl = [p if p.is_shard(1) else Replicate()
+            for p in on_mesh(w, mesh).placements]
+    x_pl = [Replicate() if pw.is_shard(1) else
+            p if p.is_shard(0) or p.is_shard(1) else Replicate()
+            for p, pw in zip(x.placements, w_pl)]
+    out_pl = [Shard(2) if pw.is_shard(1) else px
+              for px, pw in zip(x_pl, w_pl)]
+    return on_shards(_proj, mesh, (
+        (x, x_pl, [i for i, p in enumerate(w_pl) if p.is_shard(1)]),
+        (w, w_pl, [i for i, p in enumerate(x_pl) if p.is_shard()])), out_pl)
 
 
 def _out(p, o):
@@ -412,7 +438,7 @@ def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
     ``enc``, only q is rotated, and nothing is masked.  With ``return_kv``
     also the keys and the values, (b, s, kv, hd) each: what a prefill
     writes into the cache."""
-    q, k, v = _project(p, x, heads, kv, hd, src=enc)
+    q, k, v = _project(p, x, src=enc)
     # heads claim 'model' when divisible; otherwise the batch spreads over
     # data AND model (batch-parallel attention)
     q = constrain(q, "?batch_plus", None, "heads", None)
@@ -443,12 +469,29 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=None,
 
     int8 caches pass kscale/vscale (b, g): q stays in its dtype, the cache
     is cast to it, and each scale multiplies after its contraction.
+
+    Rows of q split along its heads on a mesh attend on each device's
+    shard (``_decode_on_mesh``).
     """
+    if split_on(q, 2) and q.shape[0] > 1:
+        return _decode_on_mesh(q, k_cache, v_cache, cur_len, window=window,
+                               kscale=kscale, vscale=vscale)
     if kscale is not None:
         k_cache, v_cache, kscale, vscale = _groups_for(q, k_cache, v_cache,
                                                        kscale, vscale)
     else:
         k_cache, v_cache = _groups_for(q, k_cache, v_cache)
+    return _decode_rows(q, k_cache, v_cache, cur_len, window=window,
+                        kscale=kscale, vscale=vscale)
+
+
+def _decode_rows(q, k_cache, v_cache, cur_len, *, window, kscale, vscale,
+                 jpos=None):
+    """``decode_attention``'s arithmetic over cache positions ``jpos``
+    (all S of them unless given).  Given them, a slice of the cache, it
+    returns this slice's part: (o (b, sq, h, hd) in f32, normalised over
+    the slice, and the log-sum-exp of its scores (b, sq, h)), which
+    ``_merge_slices`` combines across slices."""
     b, S, g, hd = k_cache.shape
     sq, h = q.shape[1], q.shape[2]
     r = h // g
@@ -461,7 +504,9 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=None,
     if kscale is not None:
         s = s * kscale[:, :, None, None, None]
     dev = q.device
-    jpos = torch.arange(S, device=dev)
+    part = jpos is not None
+    if not part:
+        jpos = torch.arange(S, device=dev)
     ipos = torch.arange(sq, device=dev)
     if isinstance(cur_len, torch.Tensor):
         qpos = cur_len.to(dev).reshape(-1, 1) - sq + ipos  # (b, sq)
@@ -471,12 +516,90 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, window=None,
     if window is not None:
         mask &= jpos[None, None, :] > qpos[..., None] - window
     s = s.masked_fill(~mask[:, None, None], NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    if part:
+        top = s.amax(-1, keepdim=True)
+        e = torch.exp(s - top)
+        total = e.sum(-1, keepdim=True)
+        p = e / total
+        lse = (top + total.log())[..., 0].permute(0, 3, 1, 2)
+    else:
+        p = torch.softmax(s, dim=-1)
     vg = v_cache.to(cd).permute(0, 2, 1, 3)[:, :, None].to(f32)
     o = p.to(cd).to(f32) @ vg                             # (b, g, r, sq, hd)
     if vscale is not None:
         o = o * vscale[:, :, None, None, None]
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    if part:
+        return o, lse.reshape(b, sq, h)
+    return o.to(q.dtype)
+
+
+def _merge_slices(o, lse, dtype):
+    """The slices' parts (``_decode_rows``), stacked on a leading axis:
+    o (n, b, sq, h, hd), lse (n, b, sq, h), weighted by each slice's share
+    of the softmax's total, summed, in ``dtype``."""
+    w = torch.softmax(lse, dim=0)
+    return (w[..., None] * o).sum(0).to(dtype)
+
+
+def _decode_on_mesh(q, k, v, cur_len, *, window, kscale, vscale):
+    """``decode_attention`` of a heads-split q on each device's shard under
+    ``local_map``: torch 2.11's DTensor refuses the batched products'
+    flattening of (b, g, r) when the groups are split and b is not 1 (a
+    split dimension after the first that is not 1).
+
+    A cache split along its sequence keeps that split, as flash decoding
+    does: q is gathered whole over those mesh dimensions, each device
+    attends over its slice of the positions (``_decode_rows``), and the
+    slices' parts, a few numbers a row and head, are gathered and merged
+    by their log-sum-exp (``_merge_slices``).  Elsewhere q's split of the
+    batch and of the heads is kept and any other placement replicated; the
+    caches, and the int8 scales, are placed as q, their KV heads repeated
+    first where the heads' split cannot follow the groups
+    (``_groups_for``); a per-row ``cur_len`` follows the batch.  Each
+    (row, head) attends as on one device."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    keep = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in q.placements]
+    seq = [i for i, p in enumerate(on_mesh(k, mesh).placements)
+           if p.is_shard(1)]
+    pl = [Replicate() if i in seq else p for i, p in enumerate(keep)]
+    q = q.redistribute(mesh, pl)
+    k, v, *scales = _groups_for(q, k, v, *(() if kscale is None
+                                            else (kscale, vscale)))
+    kv_pl = [Shard(1) if i in seq else p for i, p in enumerate(pl)]
+    rows = [p if p.is_shard(0) else Replicate() for p in pl]   # (b,)
+    groups = [Shard(1) if p.is_shard(2) else p for p in pl]     # (b, g)
+    per_row = isinstance(cur_len, torch.Tensor)
+    args = [(q, pl, ()), (k, kv_pl, ()), (v, kv_pl, ()),
+            *([(cur_len, rows, ())] if per_row else []),
+            *((sc, groups, ()) for sc in scales)]
+
+    def attend(ql, kl, vl, *rest):
+        n = rest[0] if per_row else cur_len
+        ks, vs = rest[per_row:per_row + len(scales)] or (None, None)
+        if not seq:
+            return _decode_rows(ql, kl, vl, n, window=window, kscale=ks,
+                                vscale=vs)
+        o, lse = _decode_rows(ql, kl, vl, n, window=window, kscale=ks,
+                              vscale=vs, jpos=rest[-1])
+        return o[None], lse[None]
+
+    if not seq:
+        return on_shards(attend, mesh, args, pl)
+    # the parts stacked on a new leading axis, split over the slices
+    stack = [Shard(0) if i in seq else Shard(p.dim + 1) if p.is_shard()
+             else p for i, p in enumerate(pl)]
+    jpos = torch.arange(k.shape[1], device=k.device)
+    o, lse = on_shards(attend, mesh, args + [
+        (jpos, [Shard(0) if i in seq else Replicate()
+                for i in range(mesh.ndim)], ())], (stack, stack))
+    whole = [Replicate() if i in seq else p for i, p in enumerate(stack)]
+    out = on_shards(functools.partial(_merge_slices, dtype=q.dtype), mesh,
+                    ((o, whole, ()), (lse, whole, ())), pl)
+    return out.redistribute(mesh, keep)
 
 
 def decode_attention_ring(q, k_cache, v_cache, pos: int):
@@ -563,7 +686,7 @@ def attn_decode(p, x, cache, pos, *, heads, kv, hd, theta, ring=False,
         if s != 1 or isinstance(pos, torch.Tensor) or np.ndim(pos) != 0:
             raise ValueError("cross-attention decode is one token at one "
                              "host position")
-        q, k, v = _project(p, x, heads, kv, hd, src=enc)
+        q, k, v = _project(p, x, src=enc)
         q = rope(q, (int(pos) + torch.arange(1, device=x.device)).expand(
             b, 1), theta)
         return _out(p, decode_attention(q, k, v, k.shape[1])), cache
@@ -576,7 +699,7 @@ def attn_decode(p, x, cache, pos, *, heads, kv, hd, theta, ring=False,
         start = int(pos)
     else:
         start = write_positions(pos, b, s, S, x.device)
-    q, k_new, v_new = _project(p, x, heads, kv, hd)
+    q, k_new, v_new = _project(p, x)
     steps = torch.arange(s, device=x.device)
     if isinstance(start, torch.Tensor):
         positions = start[:, None] + steps[None, :]
@@ -684,7 +807,7 @@ def attn_decode_paged(p, x, k_pool, v_pool, pages, pos, *, page_size, heads,
         positions = start[:, None] + steps[None, :]
     else:
         positions = (start + steps).expand(b, s)
-    q, k_new, v_new = _project(p, x, heads, kv, hd)
+    q, k_new, v_new = _project(p, x)
     q = rope(q, positions, theta)
     k_new = rope(k_new, positions, theta)
     if targets is None:

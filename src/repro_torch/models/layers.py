@@ -20,7 +20,6 @@ from ..dist.act_sharding import constrain, current_mesh, use_mesh
 
 __all__ = [
     "remat",
-    "sharded_last",
     "rms_norm",
     "rope",
     "gated_mlp",
@@ -99,20 +98,82 @@ def remat(fn, *args, policy: str = "nothing"):
     return checkpoint(on_mesh, *args, use_reentrant=False, **kw)
 
 
-def sharded_last(w) -> bool:
-    """Is ``w`` a DTensor split along its last axis?  Then (2, ff) cannot
-    be flattened into one axis without gathering ff first."""
-    return any(p.is_shard(w.ndim - 1) for p in getattr(w, "placements", ()))
+class _SumGrad(torch.autograd.Function):
+    """Identity on a DTensor whose gradient each device computes as a
+    partial sum over the mesh dimensions ``dims``: an operand of a product
+    run on each shard under ``local_map`` while the other operand is split
+    there (``local_map`` hands back a gradient placed as its input).  The
+    backward sums it over those dimensions."""
+
+    @staticmethod
+    def forward(ctx, t, dims):
+        ctx.dims, ctx.placements = dims, tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial
+
+        pl = [Partial() if i in ctx.dims else p
+              for i, p in enumerate(ctx.placements)]
+        g = DTensor.from_local(g.to_local(), g.device_mesh, pl,
+                               run_check=False, shape=g.shape,
+                               stride=g.stride())
+        return g.redistribute(g.device_mesh, ctx.placements), None
+
+
+def sum_grad_over(t, dims):
+    """``t`` with its gradient summed over the mesh dimensions ``dims``
+    (``_SumGrad``); ``t`` itself when there are none or no gradient is
+    asked for."""
+    if not dims or not torch.is_grad_enabled() or not t.requires_grad:
+        return t
+    return _SumGrad.apply(t, tuple(dims))
+
+
+def split_on(t, dim: int) -> bool:
+    """Is ``t`` a DTensor split along its axis ``dim``?"""
+    return any(p.is_shard(dim) for p in getattr(t, "placements", ()))
+
+
+def on_mesh(t, mesh):
+    """``t`` as a DTensor on ``mesh``: itself when it is one, else a plain
+    tensor (the same on every rank) replicated there."""
+    if hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def on_shards(fn, mesh, args, out_placements):
+    """``fn`` on each device's shard under ``local_map``.  ``args`` holds,
+    for each of fn's arguments, ``(tensor, placements, dims)``: the tensor
+    is put on ``mesh`` (``on_mesh``) and redistributed to its placements,
+    and its gradient, a partial sum on each shard where another argument
+    is split over the mesh dimensions ``dims``, is summed over them
+    (``sum_grad_over``)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    ts = [sum_grad_over(on_mesh(t, mesh).redistribute(mesh, pl), dims)
+          for t, pl, dims in args]
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(pl for _, pl, _ in args),
+                     device_mesh=mesh)(*ts)
 
 
 def gated_mlp(x, wi, wo, act: str):
     """SwiGLU / GeGLU: wi: (d, 2, ff), wo: (ff, d).  x: (b, s, d).  With
     wi split along ff on a mesh the gate and up products run apart, each
-    column-parallel."""
+    column-parallel; an x split along its sequence runs on each device's
+    shard (``_mlp_on_mesh``)."""
+    if split_on(x, 1):
+        return constrain(_mlp_on_mesh(x, wi, wo, act), "batch", None, None)
     dt = x.dtype
     d, _, ff = wi.shape
     w = wi.to(dt)
-    if sharded_last(w):
+    if split_on(w, 2):  # (2, ff) cannot flatten with ff split
         h = torch.stack([x @ w[:, 0], x @ w[:, 1]], dim=-2)
     else:
         h = (x @ w.reshape(d, 2 * ff)).unflatten(-1, (2, ff))
@@ -120,6 +181,35 @@ def gated_mlp(x, wi, wo, act: str):
     gate, up = h[..., 0, :], h[..., 1, :]
     g = F.gelu(gate, approximate="tanh") if act == "geglu" else F.silu(gate)
     return constrain((g * up) @ wo.to(dt), "batch", None, None)
+
+
+def _mlp_on_mesh(x, wi, wo, act: str):
+    """``gated_mlp`` of an x split along its sequence, on each device's
+    shard under ``local_map``: torch 2.11's DTensor refuses the products'
+    flattening of (b, s) when s is split ("Attempted to flatten multiple
+    dimensions").  wi and wo keep a split of ff; x keeps its batch or
+    sequence split where they are whole and is otherwise gathered whole,
+    and the output is then a partial sum over ff's split (row-parallel
+    wo), reduced by the caller's placement.  Each shard runs the plain
+    path's products.  The gradients of x (over ff's split) and of wi, wo
+    (over x's) are partial sums on each shard, summed by
+    ``sum_grad_over``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    wi_pl = [p if p.is_shard(2) else Replicate()
+             for p in on_mesh(wi, mesh).placements]
+    wo_pl = [Shard(0) if p.is_shard(2) else Replicate() for p in wi_pl]
+    x_pl = [Replicate() if pw.is_shard(2) else
+            p if p.is_shard(0) or p.is_shard(1) else Replicate()
+            for p, pw in zip(x.placements, wi_pl)]
+    out_pl = [Partial() if pw.is_shard(2) else px
+              for px, pw in zip(x_pl, wi_pl)]
+    by_ff = [i for i, p in enumerate(wi_pl) if p.is_shard(2)]
+    by_x = [i for i, p in enumerate(x_pl) if p.is_shard()]
+    return on_shards(functools.partial(gated_mlp, act=act), mesh,
+                     ((x, x_pl, by_ff), (wi, wi_pl, by_x),
+                      (wo, wo_pl, by_x)), out_pl)
 
 
 # ----------------------------------------------------------------- init

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist.act_sharding import constrain
-from .layers import init_linear, init_norm, rms_norm
+from .layers import init_linear, init_norm, on_shards, rms_norm, split_on
 
 __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode",
            "init_ssm_state", "ssd"]
@@ -89,13 +89,37 @@ def _silu(x):
 def _causal_depthwise_conv(x, w, b):
     """x: (b, s, c); w: (W, c); left-padded causal depthwise conv + silu.
     The W shifted products are summed in order, as the reference's
-    ``sum(...)`` sums them."""
+    ``sum(...)`` sums them.  On a mesh it runs on each device's shard
+    (``_conv_on_mesh``)."""
+    if hasattr(x, "device_mesh"):
+        return _conv_on_mesh(x, w, b)
     W, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = xp[:, 0:s] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + s] * w[i]
     return _silu(out + b)
+
+
+def _conv_on_mesh(x, w, b):
+    """The conv of a DTensor x on each device's shard under ``local_map``:
+    x keeps its batch and channel splits and is otherwise gathered whole
+    (the sequence whole on each shard, as the conv reads W - 1 positions
+    back), w and b follow the channels, their gradients summed over the
+    batch's split (``on_shards``).  torch 2.11's DTensor cannot plan
+    the pad of a DTensor (an ``IndexError`` in its redistribution
+    planner); on each shard the pad is a plain tensor's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    x_pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in x.placements]
+    w_pl = [Shard(1) if p.is_shard(2) else Replicate() for p in x_pl]
+    b_pl = [Shard(0) if p.is_shard(2) else Replicate() for p in x_pl]
+    batch = [i for i, p in enumerate(x_pl) if p.is_shard(0)]
+    return on_shards(_causal_depthwise_conv, mesh,
+                     ((x, x_pl, ()), (w, w_pl, batch), (b, b_pl, batch)),
+                     x_pl)
 
 
 def _decay_mask(cum):
@@ -156,6 +180,43 @@ def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
     return (y_diag + y_off).reshape(b, s, h, p), S.permute(0, 2, 1, 3)
 
 
+def _ssd_on_mesh(x, dt, A, B, C, D, chunk, initial_state):
+    """``ssd`` of a heads-split x, its D skip and its flattening to (b, s,
+    h*p), on each device's shard under ``local_map``: torch 2.11's DTensor
+    refuses the batched products' flattening of (b, c, h) and the
+    output's of (h, p) when the heads are split.  The batch and heads
+    splits of x are kept and any other placement replicated (the sequence
+    whole, for the scan between chunks); dt, A, D and a given state follow
+    them, B and C the batch only.  Each shard runs the plain path on its
+    (row, head) blocks; the gradients of B and C (over the heads' split)
+    and of A and D (over the batch's) are partial sums on each shard,
+    summed (``on_shards``).  Returns (y (b, s, h*p), the final state
+    (b, h, ds, p))."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    x_pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in x.placements]
+    heads = [Shard(0) if p.is_shard(2) else Replicate() for p in x_pl]
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in x_pl]
+    state = [Shard(1) if p.is_shard(2) else p for p in x_pl]
+    by_heads = [i for i, p in enumerate(x_pl) if p.is_shard(2)]
+    by_rows = [i for i, p in enumerate(x_pl) if p.is_shard(0)]
+
+    args = [(x, x_pl, ()), (dt, x_pl, ()), (A, heads, by_rows),
+            (B, rows, by_heads), (C, rows, by_heads), (D, heads, by_rows)]
+    if initial_state is not None:
+        args.append((initial_state, state, ()))
+
+    def run(xl, dtl, Al, Bl, Cl, Dl, *init):
+        b, s, h, p = xl.shape
+        y, S = ssd(xl, dtl, Al, Bl, Cl, chunk, init[0] if init else None)
+        return (y + Dl[:, None] * xl).reshape(b, s, h * p), S
+
+    out = [Shard(2) if p.is_shard(2) else p for p in x_pl]
+    return on_shards(run, mesh, args, (out, state))
+
+
 def mamba2_forward(params, cfg, u, *, initial_state=None):
     """u: (b, s, d) -> (out (b, s, d), {"S", "conv"}).  s must be a multiple
     of min(cfg.ssm_chunk, s).  The state is what decode continues from:
@@ -181,8 +242,12 @@ def mamba2_forward(params, cfg, u, *, initial_state=None):
     x = constrain(x.reshape(b, s, h, p).to(f32), "batch", None, "heads", None)
     dt = _softplus(dtraw.to(f32) + params["dt_bias"])    # (b, s, h)
     A = -torch.exp(params["A_log"])                      # (h,)
-    y, S_last = ssd(x, dt, A, B.to(f32), C.to(f32), Q, initial_state)
-    y = (y + params["D"][:, None] * x).reshape(b, s, d_in)
+    if split_on(x, 2):
+        y, S_last = _ssd_on_mesh(x, dt, A, B.to(f32), C.to(f32),
+                                 params["D"], Q, initial_state)
+    else:
+        y, S_last = ssd(x, dt, A, B.to(f32), C.to(f32), Q, initial_state)
+        y = (y + params["D"][:, None] * x).reshape(b, s, d_in)
 
     # gated output norm + projection
     y = rms_norm((y * _silu(z.to(f32))).to(dt_), params["norm"],

@@ -22,7 +22,7 @@ from .crypto import (  # noqa: F401
     make_crypto_fns,
 )
 from .offline import (  # noqa: F401
-    CompletionPump, OfflineInference, ReplicaSet, pow2_buckets,
-    replica_devices, sample_stats,
+    CompletionPump, OfflineInference, RankReplicaSet, ReplicaSet,
+    pow2_buckets, replica_devices, replica_meshes, sample_stats,
 )
 from .loadgen import SLO, poisson_requests, search_max_qps  # noqa: F401

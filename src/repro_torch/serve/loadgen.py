@@ -109,7 +109,11 @@ def search_max_qps(harness, make_requests, slo: SLO, *, qps_lo: float,
 
     ``make_requests(n, qps)`` must synthesize a FRESH phase workload
     (new rids) with Poisson arrivals at ``qps``; ``harness`` is a
-    warmed ``OfflineInference``.  Protocol: measure ``qps_lo`` (fail ->
+    warmed ``OfflineInference``.  Over ranks every rank calls this with
+    the same seeded ``make_requests``: each phase's record is rank 0's,
+    broadcast (``harness.from_root``), so every rank takes the same
+    bisection path and returns the same transcript.  Protocol: measure
+    ``qps_lo`` (fail ->
     report unsustainable floor), measure ``qps_hi`` (pass -> the
     bracket never saturated; report the ceiling), then ``iters``
     geometric bisections of the (pass, fail) bracket.  Returns the full
@@ -121,10 +125,12 @@ def search_max_qps(harness, make_requests, slo: SLO, *, qps_lo: float,
     if iters < 0:
         raise ValueError("iters must be >= 0")
     phases: list[dict] = []
+    from_root = getattr(harness, "from_root", lambda ph: ph)
 
     def trial(qps: float) -> dict:
         reqs = make_requests(phase_requests, qps)
-        ph = phase_stats(harness.run(reqs), qps)
+        report = harness.run(reqs)   # None on a rank other than 0
+        ph = from_root(None if report is None else phase_stats(report, qps))
         fails = slo.check(ph)
         ph["slo_pass"], ph["slo_fails"] = not fails, fails
         phases.append(ph)

@@ -18,7 +18,13 @@ gemma3-1b smoke model (ZeRO-1 on), and report what each case needs:
   * ``dist.sharding.local_slices`` against DTensor's own cut of uneven and
     nested shards;
   * ``flash_attention``'s three routes with q's heads split over "model"
-    against the same calls in one process.
+    against the same calls in one process;
+  * ``attention._project`` with its weights split along their heads and
+    its input along its sequence, ``ssm._causal_depthwise_conv`` of a split
+    sequence, ``attention.decode_attention`` of heads-split queries, a
+    Mamba2 block with its SSD heads split and ``layers.gated_mlp`` of a
+    split sequence (the branches torch 2.11's DTensor needs) against the
+    plain path.
 """
 import json
 import os
@@ -188,6 +194,134 @@ for g in (2, 1):
             flash[f"g{g}/{impl}/{causal}/{window}"] = [
                 str(got.placements), errs]
 out["flash"] = flash
+# -- the projection with its heads split and the conv of a split sequence
+from repro_torch.models import attention as A, ssm as S
+def grads_of(fn, *ts):
+    ts = [t.detach().requires_grad_(True) for t in ts]
+    y = fn(*ts)
+    return y, ts
+rng = np.random.default_rng(2)
+x, enc, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+              for sh in ((4, 6, 32), (4, 10, 32), (4, 6, 4, 8)))
+w = {n: torch.from_numpy(rng.standard_normal((32, h, 8)).astype(np.float32))
+     for n, h in (("wq", 4), ("wk", 2), ("wv", 2))}
+heads = (Replicate(), Shard(1))
+sites = {}
+for name, x_pl, src in (("batch", (Shard(0), Replicate()), None),
+                        ("sequence", (Shard(0), Shard(1)), None),
+                        ("cross", (Shard(0), Shard(1)), enc)):
+    want = A._project(w, x, src=src)
+    one = [t.clone().requires_grad_(True) for t in (x, w["wq"])]
+    A._project({**w, "wq": one[1]}, one[0], src=src)[0].backward(do)
+    px = distribute_tensor(x, m22, x_pl).requires_grad_(True)
+    pw = {n: distribute_tensor(t, m22, heads).requires_grad_(n == "wq")
+          for n, t in w.items()}
+    psrc = None if src is None else distribute_tensor(src, m22, x_pl)
+    got = A._project(pw, px, src=psrc)
+    (got[0] * distribute_tensor(do, m22, got[0].placements)).sum().backward()
+    sites["project/" + name] = [
+        [str(g.placements) for g in got],
+        all(torch.equal(g.full_tensor(), t) for g, t in zip(got, want)),
+        [float((a.grad.full_tensor() - b.grad).abs().max()
+               / b.grad.abs().max()) for a, b in ((px, one[0]),
+                                                  (pw["wq"], one[1]))]]
+xc, wc, bc = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+              for sh in ((4, 16, 12), (4, 12), (12,)))
+for name, x_pl, params_on_mesh in (
+        ("sequence", (Shard(0), Shard(1)), True),
+        ("channels", (Replicate(), Shard(2)), True),
+        ("plain weights", (Shard(1), Shard(1)), False)):
+    want = S._causal_depthwise_conv(xc, wc, bc)
+    one = [t.clone().requires_grad_(True) for t in (xc, wc, bc)]
+    S._causal_depthwise_conv(*one).sum().backward()
+    px = distribute_tensor(xc, m22, x_pl).requires_grad_(True)
+    wb = [(distribute_tensor(t, m22, (Replicate(), Replicate()))
+           if params_on_mesh else t.clone()).requires_grad_(True)
+          for t in (wc, bc)]
+    got = S._causal_depthwise_conv(px, *wb)
+    got.sum().backward()
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    sites["conv/" + name] = [
+        [str(got.placements)], torch.equal(got.full_tensor(), want),
+        [float((whole(a.grad) - b.grad).abs().max() / b.grad.abs().max())
+         for a, b in zip([px, *wb], one)]]
+# -- decode attention with the heads split, and the Mamba2 block's SSD
+rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+from repro_torch.launch.costs import LocalCosts
+for g, sq, per_row, quant in ((2, 1, False, False), (2, 2, True, False),
+                              (1, 1, True, False), (2, 1, False, True),
+                              (1, 1, False, True)):
+    q = torch.from_numpy(rng.standard_normal((4, sq, 4, 8)).astype(np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal((4, 16, g, 8))
+                               .astype(np.float32)) for _ in range(2))
+    kw = {}
+    if quant:
+        kc, vc = (torch.round(t * 20).clamp(-127, 127) for t in (kc, vc))
+        kw = {n: torch.from_numpy(rng.uniform(0.01, 0.1, (4, g))
+                                  .astype(np.float32)) for n in ("kscale", "vscale")}
+    n = torch.tensor([16, 9, 12, 5]) if per_row else 11
+    want = A.decode_attention(q, kc, vc, n, window=8, **kw)
+    cache_pl = (Shard(0), Shard(2) if g == 2 else Shard(1))
+    moved = []
+    for reps in (1, 4):     # the cache as it is, and 4x as long
+        with LocalCosts() as costs:
+            got = A.decode_attention(
+                distribute_tensor(q, m22, (Shard(0), Shard(2))),
+                *(distribute_tensor(torch.cat([t] * reps, 1), m22, cache_pl)
+                  for t in (kc, vc)), n, window=8,
+                **{k: distribute_tensor(v, m22, (Shard(0), Replicate()))
+                   for k, v in kw.items()})
+        moved.append(sum(costs.collectives.values()))
+        if reps == 1:
+            sites[f"decode/g{g}/sq{sq}/rows{per_row}/int8{quant}"] = [
+                [str(got.placements)], torch.equal(got.full_tensor(), want),
+                [rel(got.full_tensor(), want)]]
+    sites[f"decode/g{g}/sq{sq}/rows{per_row}/int8{quant}"][2] += moved
+scfg = dataclasses.replace(get_config("mamba2-370m").smoke(), ssm_chunk=8)
+sp = S.init_mamba2(torch.Generator().manual_seed(0), scfg, torch.float32, "cpu")
+u = torch.from_numpy(rng.standard_normal((4, 32, scfg.d_model)).astype(np.float32))
+for init in (False, True):
+    S0 = (torch.from_numpy(rng.standard_normal(
+        (4, scfg.ssm_heads, scfg.ssm_state, scfg.ssm_headdim))
+        .astype(np.float32)) if init else None)
+    one = {k: v.clone().requires_grad_(True) for k, v in sp.items()}
+    u1 = u.clone().requires_grad_(True)
+    want, wst = S.mamba2_forward(one, scfg, u1, initial_state=S0)
+    want.sum().backward()
+    pp = {k: distribute_tensor(v, m22, [Replicate()] * 2).requires_grad_(True)
+          for k, v in sp.items()}
+    pu = distribute_tensor(u, m22, (Shard(0), Replicate())).requires_grad_(True)
+    pS0 = (None if S0 is None else
+           distribute_tensor(S0, m22, (Shard(0), Shard(1))))
+    with use_mesh(m22):
+        got, gst = S.mamba2_forward(pp, scfg, pu, initial_state=pS0)
+        got.sum().backward()
+    errs = [rel(got.full_tensor(), want), rel(gst["S"].full_tensor(), wst["S"]),
+            rel(pu.grad.full_tensor(), u1.grad)]
+    errs += [rel(pp[k].grad.full_tensor(), one[k].grad)
+             for k in ("A_log", "D", "dt_bias", "in_proj", "conv_w")]
+    sites[f"ssd/init{init}"] = [[str(gst["S"].placements)], None, errs]
+# -- the gated MLP of a sequence-split x, its ff split over "model" or not
+from repro_torch.models import layers as L
+xm = torch.from_numpy(rng.standard_normal((4, 8, 16)).astype(np.float32))
+wi, wo = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32) * 0.3)
+          for sh in ((16, 2, 24), (24, 16)))
+for name, ff_split in (("ff split", True), ("ff whole", False)):
+    one = [t.clone().requires_grad_(True) for t in (xm, wi, wo)]
+    want = L.gated_mlp(*one, "geglu")
+    want.sum().backward()
+    px = distribute_tensor(xm, m22, (Shard(0), Shard(1))).requires_grad_(True)
+    pwi = distribute_tensor(wi, m22, (Replicate(), Shard(2) if ff_split
+                                      else Replicate())).requires_grad_(True)
+    pwo = distribute_tensor(wo, m22, (Replicate(), Shard(0) if ff_split
+                                      else Replicate())).requires_grad_(True)
+    with use_mesh(m22):
+        got = L.gated_mlp(px, pwi, pwo, "geglu")
+        got.sum().backward()
+    sites["mlp/" + name] = [[str(got.placements)], None, [rel(
+        got.full_tensor(), want)] + [rel(a.grad.full_tensor(), b.grad)
+                                     for a, b in zip((px, pwi, pwo), one)]]
+out["sites"] = sites
 json.dump(out, open(f"{d}/out{rank}.json", "w"))
 dist.destroy_process_group()
 '''
@@ -253,6 +387,99 @@ def test_flash_routes_on_2x2_match_no_mesh(ranks):
             assert placements == "(Shard(dim=0), Shard(dim=2))", case
             assert errs[0] <= 1e-5, (case, errs)
             assert all(e <= 2e-5 for e in errs[1:]), (case, errs)
+
+
+@pytest.mark.parametrize("case", ["project/batch", "project/sequence",
+                                  "project/cross"])
+def test_project_with_split_heads_matches_no_mesh(ranks, case):
+    """``attention._project`` with wq, wk, wv split along their heads over
+    "model" and x split along its batch (DTensor's own ops), along batch
+    and sequence (the branch torch 2.11's DTensor needs: no flattening of
+    a split sequence), or, so split, projecting encoder states: q, k, v
+    split along their heads, bit for bit the plain path's values, and dx,
+    dwq within ``test_torch_models.py``'s f32 gradient tolerance (2e-5 of
+    the largest magnitude: the shards sum the batch in another order)."""
+    for out in ranks:
+        placements, equal, errs = out["sites"][case]
+        assert placements == ["(Shard(dim=0), Shard(dim=2))"] * 3, placements
+        assert equal, case
+        assert all(e <= 2e-5 for e in errs), (case, errs)
+
+
+@pytest.mark.parametrize("case", ["conv/sequence", "conv/channels",
+                                  "conv/plain weights"])
+def test_conv_of_a_split_sequence_matches_no_mesh(ranks, case):
+    """``ssm._causal_depthwise_conv`` of a DTensor (the sequence split over
+    "model", the channels split, or weights not on the mesh): the sequence
+    gathered whole on each shard, the batch and channel splits kept, the
+    values bit for bit the plain path's, and dx, dw, db within 2e-5 (the
+    shards sum the batch in another order)."""
+    for out in ranks:
+        placements, equal, errs = out["sites"][case]
+        assert equal, case
+        assert all(e <= 2e-5 for e in errs), (case, errs)
+    want = {"conv/sequence": "(Shard(dim=0), Replicate())",
+            "conv/channels": "(Replicate(), Shard(dim=2))",
+            "conv/plain weights": "(Replicate(), Replicate())"}[case]
+    assert ranks[0]["sites"][case][0] == [want]
+
+
+@pytest.mark.parametrize("case", [
+    "decode/g2/sq1/rowsFalse/int8False", "decode/g2/sq2/rowsTrue/int8False",
+    "decode/g1/sq1/rowsTrue/int8False", "decode/g2/sq1/rowsFalse/int8True",
+    "decode/g1/sq1/rowsFalse/int8True"])
+def test_decode_attention_with_split_heads_matches_no_mesh(ranks, case):
+    """``attention.decode_attention`` of a q split along its heads over
+    "model" (the branch torch 2.11's DTensor needs: no flattening of split
+    groups in the batched products), scalar or per-row lengths, one or two
+    new tokens, a window, and int8 caches with their scales, placed as q.
+    Caches split along their KV heads: bit for bit the plain path's values
+    (each row and head attends as on one device).  For one KV head, caches
+    split along their sequence: the split is kept (each device attends
+    over its slice and the slices merge by their log-sum-exp, as flash
+    decoding does), so the values are the plain path's within ``FP32_ATOL``
+    of the largest (the softmax sums in two steps), and the bytes a device
+    moves do not grow with the cache (a cache four times as long moves the
+    same; gathering it would move four times as much)."""
+    for out in ranks:
+        placements, equal, (err, moved, moved_4x) = out["sites"][case]
+        assert placements == ["(Shard(dim=0), Shard(dim=2))"], placements
+        if "/g2/" in case:
+            assert equal, case
+        else:
+            assert err <= FP32_ATOL and moved == moved_4x, (err, moved,
+                                                            moved_4x)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_mamba2_block_with_split_heads_matches_no_mesh(ranks, init):
+    """``ssm.mamba2_forward`` under ``use_mesh`` on (2, 2): the batch over
+    "data" and the SSD's heads over "model" (``_ssd_on_mesh``, the branch
+    torch 2.11's DTensor needs), from zeros or a given state: the output
+    and the final state, and the gradients of the input and of A_log, D,
+    dt_bias, in_proj and conv_w, within ``test_torch_models.py``'s f32
+    tolerances (1e-5 of the largest magnitude, 2e-5 for gradients: the
+    shards sum the batch and the heads in other orders); the state placed
+    by rows and heads."""
+    for out in ranks:
+        placements, _, errs = out["sites"][f"ssd/init{init}"]
+        assert placements == ["(Shard(dim=0), Shard(dim=1))"], placements
+        assert all(e <= 1e-5 for e in errs[:2]), errs
+        assert all(e <= 2e-5 for e in errs[2:]), errs
+
+
+@pytest.mark.parametrize("case", ["ff split", "ff whole"])
+def test_gated_mlp_of_a_split_sequence_matches_no_mesh(ranks, case):
+    """``layers.gated_mlp`` of an x split along batch and sequence (the
+    branch torch 2.11's DTensor needs: no flattening of a split sequence),
+    its ff split over "model" (the sequence gathered there, the output
+    reduced) or whole: the output placed by the caller's ``constrain`` (the
+    batch over "data"), and it and dx, dwi, dwo within the f32 tolerances
+    (1e-5, 2e-5 for gradients, of the largest magnitude)."""
+    for out in ranks:
+        placements, _, errs = out["sites"]["mlp/" + case]
+        assert placements == ["(Shard(dim=0), Replicate())"], placements
+        assert errs[0] <= 1e-5 and all(e <= 2e-5 for e in errs[1:]), errs
 
 
 def test_local_slices_match_dtensor(ranks):

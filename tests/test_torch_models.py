@@ -203,6 +203,37 @@ def reference_params(rc, tc):
         tc, jax.tree_util.tree_map(np.asarray, rp), "cpu")
 
 
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_project_plain_is_the_reference_einsum(dtype, cross):
+    """``attention._project`` on plain tensors (no mesh: the branch for a
+    sequence-split DTensor is not taken) against the reference's
+    ``einsum("bsd,dhk->bshk")`` q, k, v, for self- and cross-attention (k,
+    v from encoder states): bit for bit in bf16 (both round one f32
+    product), within the module's f32 tolerance in f32 (XLA's and torch's
+    f32 products sum d in other orders)."""
+    from repro_torch.models import attention as A
+
+    jd, td = DTYPES[dtype]
+    rng = np.random.default_rng(4)
+    x, enc = (rng.standard_normal(sh).astype(np.float32)
+              for sh in ((2, 7, 32), (2, 9, 32)))
+    w = {n: rng.standard_normal((32, h, 8)).astype(np.float32)
+         for n, h in (("wq", 4), ("wk", 2), ("wv", 2))}
+    assert not any(T.split_on(T_(a), 1) for a in (x, enc))
+    src = enc if cross else x
+    got = A._project({n: T_(v) for n, v in w.items()}, T_(x, td),
+                     src=T_(enc, td) if cross else None)
+    for t, (inp, name) in zip(got, ((x, "wq"), (src, "wk"), (src, "wv"))):
+        want = jnp.einsum("bsd,dhk->bshk", J(inp, jd), J(w[name]).astype(jd))
+        assert t.dtype == td
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "bfloat16":
+            assert torch.equal(t, T_(want, td))
+        else:
+            close(t, want)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", DENSE)
 def test_train_logits_match_reference(name, dtype):

@@ -205,6 +205,31 @@ def test_replica_devices():
         TO.replica_devices(0, [cpu])
 
 
+def test_replica_meshes_single_device_cases():
+    """Without a process group, the reference's one-device cases (its own
+    ``test_replica_meshes_single_device_fallback``) as the reference's
+    ``replica_meshes`` gives them on this one-device host: one replica
+    ``[None]``, three ``[None] * 3``, none refused; and the same under a
+    one-rank gloo group."""
+    import torch.distributed as dist
+
+    assert TO.replica_meshes(1) == RO.replica_meshes(1) == [None]
+    assert TO.replica_meshes(3) == RO.replica_meshes(3) == [None] * 3
+    for mod in (TO, RO):
+        with pytest.raises(ValueError, match="replica"):
+            mod.replica_meshes(0)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        assert TO.replica_meshes(1, "cpu") == [None]
+        assert TO.replica_meshes(2, "cpu") == [None, None]
+        with pytest.raises(ValueError):
+            TO.replica_meshes(0, "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_replica_devices_raise_without_a_card(monkeypatch):
     """No card and no devices named: an error, not a quiet fall back to
     the CPU; named, the CPU serves."""

@@ -170,6 +170,30 @@ def test_mamba2_forward_matches_reference(dtype, init):
     close(gst["conv"], wst["conv"].astype(jnp.float32), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_causal_conv_plain_is_the_reference_conv(dtype):
+    """``ssm._causal_depthwise_conv`` on plain tensors (no mesh): the
+    reference's padded shifted products and bias, summed in its order, bit
+    for bit before the activation (the port's ``_silu`` of the reference's
+    pre-activation sum), and the reference's whole function within the
+    module's tolerance (``jax.nn.silu`` and ``x * sigmoid(x)`` round an ulp
+    apart)."""
+    W = 4
+    rng = np.random.default_rng(5)
+    (rx, tx), (rw, tw), (rb, tb) = (
+        both(rng.standard_normal(sh).astype(np.float32), dtype)
+        for sh in ((2, 37, 24), (W, 24), (24,)))
+    xp = jnp.pad(rx, ((0, 0), (W - 1, 0), (0, 0)))
+    pre = sum(xp[:, i:i + 37, :] * rw[i][None, None, :]
+              for i in range(W)) + rb[None, None, :]
+    got = T._causal_depthwise_conv(tx, tw, tb)
+    assert got.dtype == DTYPES[dtype][1]
+    assert torch.equal(got, T._silu(torch.from_numpy(np.asarray(
+        pre.astype(jnp.float32))).to(DTYPES[dtype][1])))
+    close(got, R._causal_depthwise_conv(rx, rw, rb).astype(jnp.float32),
+          dtype)
+
+
 @pytest.mark.parametrize("s", [1, 2, 3])
 def test_conv_ring_of_a_short_prompt(s):
     """A prompt shorter than W - 1 = 3 (and one of exactly 3): the ring is
