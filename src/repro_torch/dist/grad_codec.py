@@ -58,6 +58,7 @@ from ..core.convert import mrs_dot_mod, rns_to_tensor
 from ..core.dispatch import get_backend, resolve_backend
 from ..core.mrc import mrc_unrolled, mrs_ge
 from ..core.signed import abs_ge_threshold, encode_signed, is_negative
+from ..spans import span
 from . import _tree
 
 __all__ = ["GradCodec", "rns_psum", "rns_psum_tree", "tree_pack",
@@ -403,22 +404,26 @@ class GradCodec:
         chans = tuple(self.base.moduli) + self.redundant
         oks, fixes = [], []
         for c, (sb, r_digits) in enumerate(tables):
-            xs = torch.cat([folded[..., :c], folded[..., c + 1:]], dim=-1)
-            d = mrc_unrolled(sb, xs)
-            bound = torch.tensor(r_digits, dtype=d.dtype,
-                                 device=d.device).expand(d.shape)
-            oks.append(~mrs_ge(d, bound))  # reconstruction-sans-c < R
-            fixes.append(mrs_dot_mod(sb, d, (chans[c],))[..., 0])
+            with span("rrns.mrc"):
+                xs = torch.cat([folded[..., :c], folded[..., c + 1:]], dim=-1)
+                d = mrc_unrolled(sb, xs)
+            with span("rrns.compare"):
+                bound = torch.tensor(r_digits, dtype=d.dtype,
+                                     device=d.device).expand(d.shape)
+                oks.append(~mrs_ge(d, bound))  # reconstruction-sans-c < R
+            with span("rrns.extend"):
+                fixes.append(mrs_dot_mod(sb, d, (chans[c],))[..., 0])
         return torch.stack(oks, dim=-1), torch.stack(fixes, dim=-1)
 
     def _verdict(self, ok):
         """Per-element verdict: -1 clean, the channel index on a unique hit,
         -2 uncorrectable otherwise."""
-        cnt = ok.sum(dim=-1)
-        hit = torch.argmax(ok.to(torch.int32), dim=-1).to(torch.int32)
-        return torch.where(
-            cnt == self.n_channels, -1, torch.where(cnt == 1, hit, -2)
-        ).to(torch.int32)
+        with span("rrns.verdict"):
+            cnt = ok.sum(dim=-1)
+            hit = torch.argmax(ok.to(torch.int32), dim=-1).to(torch.int32)
+            return torch.where(
+                cnt == self.n_channels, -1, torch.where(cnt == 1, hit, -2)
+            ).to(torch.int32)
 
     def locate_fault(self, folded, *, wraps: int = 0):
         """Locate a single corrupted channel per element: int32 over
@@ -457,9 +462,10 @@ class GradCodec:
         folded, proto = self._split(folded)
         ok, fixes = self._fault_scan(folded, wraps)
         fault = self._verdict(ok)
-        hit = fault[..., None] == torch.arange(
-            self.n_channels, dtype=torch.int32, device=fault.device)
-        fixed = torch.where(hit, fixes.to(folded.dtype), folded)
+        with span("rrns.fix"):
+            hit = fault[..., None] == torch.arange(
+                self.n_channels, dtype=torch.int32, device=fault.device)
+            fixed = torch.where(hit, fixes.to(folded.dtype), folded)
         return self._rejoin(fixed, proto), fault
 
     def range_ok(self, p1, p2):
@@ -523,13 +529,14 @@ def tree_pack_rns(codec: GradCodec, grads):
 def tree_decode(codec: GradCodec, summed, meta: _TreeMeta, denom=1.0):
     """Channel-major per-channel sums (raw or ``RnsArray``) -> gradient tree
     / ``denom``; each leaf is a view of one flat decoded buffer, cast to the
-    leaf's own dtype."""
-    flat = codec.decode_summed(summed, channel_major=True) / denom
-    leaves, off = [], 0
-    for shape, dtype, size in zip(meta.shapes, meta.dtypes, meta.sizes):
-        leaves.append(flat[off : off + size].reshape(shape).to(dtype))
-        off += size
-    return _tree.unflatten(meta.treedef, leaves)
+    leaf's own dtype.  Under a profiler the span ``codec.decode``."""
+    with span("codec.decode"):
+        flat = codec.decode_summed(summed, channel_major=True) / denom
+        leaves, off = [], 0
+        for shape, dtype, size in zip(meta.shapes, meta.dtypes, meta.sizes):
+            leaves.append(flat[off : off + size].reshape(shape).to(dtype))
+            off += size
+        return _tree.unflatten(meta.treedef, leaves)
 
 
 def rns_psum_tree(codec: GradCodec, grads, group=None):

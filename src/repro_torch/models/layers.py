@@ -17,6 +17,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..dist.act_sharding import constrain, current_mesh, use_mesh
+from ..spans import backward_span, traced
 
 __all__ = [
     "remat",
@@ -78,7 +79,8 @@ def remat(fn, *args, policy: str = "nothing"):
     ``dots_with_no_batch_dims_saveable`` does) and recomputes the rest,
     the attention's batched products included.  The recompute may run on
     the autograd engine's device thread, which does not see the forward's
-    context, so on a mesh it re-enters the forward's mesh."""
+    context, so on a mesh it re-enters the forward's mesh.  Under a
+    profiler the recompute is the span ``remat.recompute``."""
     if policy == "dots":
         kw = {"context_fn": functools.partial(
             create_selective_checkpoint_contexts, list(_DOTS_SAVED))}
@@ -88,14 +90,15 @@ def remat(fn, *args, policy: str = "nothing"):
         raise ValueError(f"remat_policy {policy!r}, expected 'nothing' or "
                          "'dots'")
     mesh = current_mesh()
-    if mesh is None:
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
 
-    def on_mesh(*a):
-        with use_mesh(mesh):
-            return fn(*a)
+    def unit(*a):
+        with backward_span("remat.recompute"):
+            if mesh is None:
+                return fn(*a)
+            with use_mesh(mesh):
+                return fn(*a)
 
-    return checkpoint(on_mesh, *args, use_reentrant=False, **kw)
+    return checkpoint(unit, *args, use_reentrant=False, **kw)
 
 
 class _SumGrad(torch.autograd.Function):
@@ -248,6 +251,7 @@ def embed(tokens, table, dtype):
     return constrain(F.embedding(tokens, t) * scale, "batch", None, None)
 
 
+@traced("model.unembed")
 def unembed(x, table):
     """Logits against the (tied) embedding table: (..., d) x (V, d) -> (..., V).
 

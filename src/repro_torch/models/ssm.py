@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist.act_sharding import constrain
+from ..spans import traced
 from .layers import init_linear, init_norm, on_shards, rms_norm, split_on
 
 __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode",
@@ -87,12 +88,18 @@ def _silu(x):
 
 
 def _causal_depthwise_conv(x, w, b):
-    """x: (b, s, c); w: (W, c); left-padded causal depthwise conv + silu.
-    The W shifted products are summed in order, as the reference's
-    ``sum(...)`` sums them.  On a mesh it runs on each device's shard
+    """x: (b, s, c); w: (W, c); left-padded causal depthwise conv + silu
+    (``_conv``).  On a mesh it runs on each device's shard
     (``_conv_on_mesh``)."""
     if hasattr(x, "device_mesh"):
         return _conv_on_mesh(x, w, b)
+    return _conv(x, w, b)
+
+
+@traced("ssm.conv")
+def _conv(x, w, b):
+    """The conv of plain tensors: the W shifted products summed in order,
+    as the reference's ``sum(...)`` sums them."""
     W, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = xp[:, 0:s] * w[0]
@@ -117,7 +124,7 @@ def _conv_on_mesh(x, w, b):
     w_pl = [Shard(1) if p.is_shard(2) else Replicate() for p in x_pl]
     b_pl = [Shard(0) if p.is_shard(2) else Replicate() for p in x_pl]
     batch = [i for i, p in enumerate(x_pl) if p.is_shard(0)]
-    return on_shards(_causal_depthwise_conv, mesh,
+    return on_shards(_conv, mesh,
                      ((x, x_pl, ()), (w, w_pl, batch), (b, b_pl, batch)),
                      x_pl)
 
@@ -132,6 +139,7 @@ def _decay_mask(cum):
     return torch.exp(rel.masked_fill(~tri, -math.inf))
 
 
+@traced("ssm.ssd")
 def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
     """The chunked SSD scan in the dtype of its inputs.
 
@@ -217,6 +225,7 @@ def _ssd_on_mesh(x, dt, A, B, C, D, chunk, initial_state):
     return on_shards(run, mesh, args, (out, state))
 
 
+@traced("ssm.mixer")
 def mamba2_forward(params, cfg, u, *, initial_state=None):
     """u: (b, s, d) -> (out (b, s, d), {"S", "conv"}).  s must be a multiple
     of min(cfg.ssm_chunk, s).  The state is what decode continues from:

@@ -30,6 +30,7 @@ from ..dist import _tree
 from ..dist.act_sharding import current_mesh, use_mesh
 from ..dist.grad_codec import tree_decode, tree_pack_rns
 from ..models import train_logits
+from ..spans import span, traced
 from .optimizer import AdamWConfig, adamw_update
 
 __all__ = ["AUX_COEF", "make_loss_fn", "make_train_step", "value_and_grad"]
@@ -61,6 +62,7 @@ def _lookup(logits, labels):
     return torch.gather(logits, -1, labels[..., None])[..., 0]
 
 
+@traced("train.ce")
 def _token_ce(logits, labels):
     """``logsumexp(logits) - logits[label]`` at each position, (b, s).
 
@@ -117,11 +119,14 @@ def _token_ce(logits, labels):
 def value_and_grad(loss_fn, params, batch):
     """``(loss, ce, aux, grads)``: the loss and the gradient tree of
     ``loss_fn`` at ``params`` (the parameters themselves are left as they
-    are: no ``requires_grad`` state survives the call)."""
+    are: no ``requires_grad`` state survives the call).  Under a profiler
+    the call of ``loss_fn`` is the span ``train.forward`` and its backward
+    ``train.backward``."""
     leaves, spec = _tree.flatten(params)
     req = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        loss, (ce, aux) = loss_fn(_tree.unflatten(spec, req), batch)
+        loss, (ce, aux) = traced("train.forward", "train.backward")(loss_fn)(
+            _tree.unflatten(spec, req), batch)
         grads = torch.autograd.grad(loss, req)
     return (loss.detach(), ce.detach(), aux.detach(),
             _tree.unflatten(spec, list(grads)))
@@ -281,13 +286,14 @@ def make_train_step(
                 _tree.tree_map(lambda g: g.to_local(), grads))
 
     def train_step(params, opt_state, batch):
-        if mesh is None:
-            return _step(params, opt_state, batch)
-        with use_mesh(mesh):
-            params, opt_state, metrics = _step(params, opt_state, batch)
-        return params, opt_state, {
-            k: v.full_tensor() if hasattr(v, "full_tensor") else v
-            for k, v in metrics.items()}
+        with span("train.step"):
+            if mesh is None:
+                return _step(params, opt_state, batch)
+            with use_mesh(mesh):
+                params, opt_state, metrics = _step(params, opt_state, batch)
+            return params, opt_state, {
+                k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                for k, v in metrics.items()}
 
     def _step(params, opt_state, batch):
         if mesh is not None and rns_codec is not None:
@@ -297,30 +303,36 @@ def make_train_step(
             grads = pin(grads)
         metrics = {}
         if rns_codec is None:
-            params, opt_state, gnorm = update(
-                opt_cfg, params, grads, opt_state
-            )
+            with span("optim.adamw"):
+                params, opt_state, gnorm = update(
+                    opt_cfg, params, grads, opt_state
+                )
         else:
             # the wire buffer travels TYPED: one channel-major RnsArray
             # (layout BASE_MA/RRNS per the codec) from encode through
             # repair, the all-reduce and the optimizer-boundary decode
-            wire, meta = tree_pack_rns(rns_codec, grads)
+            with span("codec.pack"):
+                wire, meta = tree_pack_rns(rns_codec, grads)
             del grads
             if transport_hook is not None:  # fault-injection seam (raw)
                 wire = dataclasses.replace(
                     wire, residues=transport_hook(wire.residues)
                 )
             if rns_repair:
-                counts = psum(_repair(rns_codec, wire), group)
+                with span("codec.repair"):
+                    counts = _repair(rns_codec, wire)
+                counts = psum(counts, group)
                 metrics["repaired"], metrics["unrepairable"] = counts
-            psum(wire.residues, group)   # the ONLY gradient collective
+            with span("codec.wire"):
+                psum(wire.residues, group)   # the ONLY gradient collective
             world = float(dist.get_world_size(group))
             decode = lambda s: tree_decode(rns_codec, s, meta, denom=world)
             if mesh is not None:   # local shards back under their placements
                 decode = lambda s, d=decode: _tree.tree_map(_like, d(s),
                                                             params)
-            params, opt_state, gnorm = update(
-                opt_cfg, params, wire, opt_state, grad_decode=decode)
+            with span("optim.adamw"):
+                params, opt_state, gnorm = update(
+                    opt_cfg, params, wire, opt_state, grad_decode=decode)
             loss, ce, aux = psum(torch.stack([loss, ce, aux]), group) / world
         # the optimizer's post-update step counter rides along so drivers
         # can check a resume against the loop's own step

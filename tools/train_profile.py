@@ -15,15 +15,13 @@ For each path it prints one JSON object: the steps' wall ms (the spans),
 the device's busy ms inside them (the union of kernel, memcpy and memset
 intervals) and its idle share, the device ms by kind of kernel (matrix
 products, the codec kernels, the rest by name) and the TOP kernels by
-device time with their launch counts; the Chrome trace goes to
+device time with their launch counts, and the device ms a step of each of
+the program's spans (``repro_torch.spans``: ``ssm.ssd`` and
+``ssm.ssd.bwd``, the SSD core's forward and backward, ``remat.recompute``,
+the recomputation under remat, ...); the Chrome trace goes to
 ``DIR/train_profile_<arch>_<path>.json.gz`` (default
-``experiments/train_profile``, git-ignored).  For the ssm and hybrid
-families a last object times the SSD core (``models.ssm.ssd``) alone at
-one layer's shapes by CUDA events, forward and forward + backward, and
-reckons its device ms a step: each layer runs it forward twice under
-remat (the forward and the recomputation) and backward once.  Prints the
-card's name and power limit (``nvidia-smi``) first.  Exits 1 without a
-CUDA device.
+``experiments/train_profile``, git-ignored).  Prints the card's name and
+power limit (``nvidia-smi``) first.  Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -39,9 +37,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 WARMUP, STEPS, TOP = 2, 2, 25
-# Card cycles to sleep before a queued SSD timing: longer than the host takes
-# to enqueue one forward and backward of the core (about 5 ms).
-QUEUE_CYCLES = 40_000_000
 TRACE_DIR = os.path.join(ROOT, "experiments", "train_profile")
 # substrings of kernel names, by kind (the first match wins)
 KINDS = (("matmul", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
@@ -104,13 +99,22 @@ def summarize(trace_path: str, label: str, span: str = "train_step") -> dict:
         by_kind[kind_of(name) if e["cat"] == "kernel" else e["cat"]] += (
             e["dur"] / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    # a span's device range: its first to its last own kernel (a kernel
+    # falls under its innermost open range)
+    by_span = defaultdict(float)
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
+                and e.get("name") != span):
+            by_span[e["name"]] += e["dur"] / 1e3 / len(spans)
     return {"path": label, "steps": len(spans), "wall_ms": wall,
             "device_busy_ms": busy, "idle_share": 1 - busy / wall,
             "device_ms_by_kind": dict(sorted(by_kind.items(),
                                              key=lambda kv: -kv[1])),
             "launches": sum(n for _, n in by_name.values()),
             "top": [{"name": n[:160], "ms": ms, "launches": k}
-                    for n, (ms, k) in top]}
+                    for n, (ms, k) in top],
+            "span_device_ms": dict(sorted(by_span.items(),
+                                          key=lambda kv: -kv[1]))}
 
 
 def main(argv=None) -> int:
@@ -182,63 +186,7 @@ def main(argv=None) -> int:
             del params, opt, prof
     finally:
         dist.destroy_process_group()
-    if cfg.family in ("ssm", "hybrid"):
-        print(json.dumps(ssd_timing(cfg, dev)), flush=True)
     return 0
-
-
-def ssd_timing(cfg, dev, batch=2, seq=1024, runs=10) -> dict:
-    """The SSD core of one layer at the training shapes, alone: the median
-    of ``runs`` CUDA-event spans of its forward and of its forward and
-    backward, on seeded f32 inputs in the ranges the model feeds it.  Each
-    run is queued behind a sleep on the card (QUEUE_CYCLES) that outlasts
-    the host's time to enqueue it, so the events time the card's work, not
-    the host's pace."""
-    import statistics
-
-    import torch
-
-    from repro_torch.models import ssm
-
-    _, h, p, ds, _ = ssm._dims(cfg)
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def leaf(t):
-        return t.requires_grad_()
-
-    x = leaf(torch.randn((batch, seq, h, p), generator=g, device=dev))
-    B = leaf(torch.randn((batch, seq, ds), generator=g, device=dev))
-    C = leaf(torch.randn((batch, seq, ds), generator=g, device=dev))
-    dt = leaf(0.01 + 0.09 * torch.rand((batch, seq, h), generator=g,
-                                       device=dev))
-    A = leaf(-1.0 - 15.0 * torch.rand((h,), generator=g, device=dev))
-
-    def timed(backward: bool) -> float:
-        spans = []
-        for i in range(runs + 2):
-            for t in (x, B, C, dt, A):
-                t.grad = None
-            torch.cuda.synchronize(dev)
-            torch.cuda._sleep(QUEUE_CYCLES)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            y, S = ssm.ssd(x, dt, A, B, C, cfg.ssm_chunk)
-            if backward:
-                (y.sum() + S.sum()).backward()
-            e1.record()
-            torch.cuda.synchronize(dev)
-            if i >= 2:
-                spans.append(e0.elapsed_time(e1))
-        return statistics.median(spans)
-
-    fwd, fwd_bwd = timed(False), timed(True)
-    per_step = cfg.n_layers * (fwd_bwd + (fwd if cfg.remat else 0.0))
-    return {"path": "ssd_core", "arch": cfg.name, "batch": batch,
-            "seq": seq, "chunk": cfg.ssm_chunk, "heads": h, "headdim": p,
-            "state": ds, "forward_ms": fwd, "forward_backward_ms": fwd_bwd,
-            "layers": cfg.n_layers, "remat": cfg.remat,
-            "reckoned_ms_per_step": per_step}
 
 
 if __name__ == "__main__":
