@@ -7,7 +7,7 @@ Drives ``repro_torch`` (never the JAX package) through these phases and
 prints one JSON object per line:
 
 1. card      — ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build     — builds the seven CUDA kernels from the six sources in
+2. build     — builds the eight CUDA kernels from the seven sources in
                ``src/repro_torch/kernels/csrc`` (``nvcc``, one process per
                source, all started together) with the ptxas lines of the
                instances the main paths run (registers, spills; for the
@@ -46,7 +46,8 @@ prints one JSON object per line:
                Then 8 emulated replicas of one leaf (their summed encodings
                decode to the oracle sum / 8, and one compare launch gives
                the sum's sign), and RRNS repair of injected faults on every
-               channel, with a two-channel fault refused;
+               channel, with a two-channel fault refused, each locate and
+               repair one launch of the repair kernel;
 5b. train    — slice 4, the training path at full width: gemma3-1b
                (999,812,736 f32 parameters) through the port's training
                driver ``repro_torch.launch.train.main``, batch 2 x seq 1024,
@@ -58,9 +59,9 @@ prints one JSON object per line:
                step 1 the encode of the real gradient buffer and the decode
                of the summed wire held against their plain versions, bit for
                bit.  Then ``--rns-correct`` with one wire residue corrupted
-               at step 2: repaired == 1 there, nothing unrepairable, and the
-               parameters after step 4 bit-equal to the same run without
-               the fault.  Per step: host ms around a synchronised step,
+               at step 2: repaired == 1 there, nothing unrepairable, one
+               rrns_repair launch a step, and the parameters after step 4
+               bit-equal to the same run without the fault.  Per step: host ms around a synchronised step,
                tokens/s, CUDA-event ms of forward + backward,
                ``tree_pack_rns``, ``all_reduce`` and ``adamw_update`` with
                its decode; per run the peak device memory beside the
@@ -301,7 +302,12 @@ prints one JSON object per line:
                cheapest step's time, the slope of one-column device times
                between n = 17 and 32; the Montgomery kernels at 8,192
                columns, at 1,024 (the lane's ladder) and on one column (the
-               lane's other products).  To time a parent commit beside
+               lane's other products); the RRNS repair kernel on the
+               training run's (5, 999,812,736) wire, first held against its
+               plain version bit for bit (fixed wire, verdicts, counts) with
+               4,096 single- and 512 two-channel faults planted, then timed
+               with one fault a call, its bound the wire's bytes.  To time
+               a parent commit beside
                this tree, run both trees' chip_smoke.py in one call to the
                card (parent, change, change, parent) and read the rows;
 8. kernels   — one line listing every ported kernel, its launches summed
@@ -316,7 +322,9 @@ prints one JSON object per line:
                row: mrc and modmul at the
                paper's width, compare on the one column where 17,588 of its
                17,657 launches run (the divmods' and the canonicalisations'
-               shape), the codec's on the gemma3-1b buffer, the Montgomery
+               shape), the codec's and the repair's on the gemma3-1b
+               buffer (the repair kernel has no counterpart in the
+               reference: ``replaces`` null), the Montgomery
                kernels at the 8,192-column timing shape (the lane runs the
                ladder on 1,024 columns and its products on one; those rows
                are in phase 7).
@@ -401,6 +409,7 @@ REPLICAS = 8                       # the detect codec is make(world=8)
 REPLICA_LEAF = "layers/attn/wq"    # 30,670,848 elements
 CLIP_STRIDE = 1_000_003            # every such element is scaled past the clip
 CHUNK = 1 << 26                    # elements per plain-version comparison
+RRNS_FAULTS = 4096                 # single-channel faults on the timed wire
 DIST_BACKEND = "nccl"
 
 # Slice 4, the training path: gemma3-1b at full width through the port's
@@ -957,6 +966,7 @@ def launch_counts(ops) -> dict:
             "compare": ops.compare_op.launches,
             "codec_encode": ops.codec_encode_op.launches,
             "codec_decode": ops.codec_decode_op.launches,
+            "rrns_repair": ops.rrns_repair_op.launches,
             "mont_mul": ops.mont_mul_op.launches,
             "mont_ladder": ops.mont_ladder_op.launches}
 
@@ -965,7 +975,8 @@ def implied(**nonzero) -> dict:
     """Launch counts with every kernel not named at 0."""
     return {k: nonzero.get(k, 0) for k in ("mrc", "modmul", "compare",
                                            "codec_encode", "codec_decode",
-                                           "mont_mul", "mont_ladder")}
+                                           "rrns_repair", "mont_mul",
+                                           "mont_ladder")}
 
 
 def codec_tables(codec):
@@ -1221,7 +1232,8 @@ def codec_replicas(dev) -> dict:
 def codec_rrns(dev) -> dict:
     """A locate-and-correct codec on one leaf: single-channel faults on every
     channel are located and repaired bitwise; a two-channel fault is
-    refused (-2) and left as it was."""
+    refused (-2) and left as it was; each locate and repair one launch of
+    the repair kernel."""
     import torch
 
     from repro_torch.dist.fault import repair_packed
@@ -1265,11 +1277,116 @@ def codec_rrns(dev) -> dict:
             == -2, "codec rrns: a two-channel fault was not refused")
     torch.cuda.synchronize()
     launches = launch_counts(ops)
-    require(launches == implied(codec_encode=1),
+    # two locates and two repairs, one repair launch each
+    require(launches == implied(codec_encode=1, rrns_repair=4),
             f"codec rrns launches {launches}")
     return {"leaf": REPLICA_LEAF, "channels": len(chans), "faults": n_faults,
             "report": report, "two_channel_report": refused,
             "launches": launches}
+
+
+def rrns_repair_row(dev, flat, max_err, card) -> dict:
+    """The repair kernel on the training wire's shape: the f32 buffer
+    ``flat`` encoded by the one-rank ``--rns-correct`` codec into its
+    (5, B) channel-major wire, RRNS_FAULTS seeded single-channel faults and
+    RRNS_FAULTS // 8 two-channel ones planted; ``rrns_repair_op`` held
+    against ``rrns_repair_plain`` (CHUNK columns at a time) bit for bit:
+    the fixed wire, the verdicts and the counts, which must name every
+    planted fault.  Then its time on the wire with one fault planted again
+    before each call, as the benchmark's RRNS cell plants one a step, and
+    the plain version's on the whole wire; its bound the wire's bytes read
+    once at HBM_BYTES_PER_S."""
+    import torch
+
+    from repro_torch.dist.grad_codec import GradCodec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rrns_repair import rrns_repair_plain
+
+    free_card()
+    codec = GradCodec.make(world=2, correct=True)   # launch.train's, 1 rank
+    wire = codec.encode_packed(flat, channel_major=True)
+    nch, B = wire.shape
+    chans = torch.tensor(tuple(codec.base.moduli) + codec.redundant,
+                         dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    k1, k2 = RRNS_FAULTS, RRNS_FAULTS // 8
+    # one random column in each of k1 + k2 equal strides: all distinct
+    at = torch.randint(0, B // (k1 + k2), (k1 + k2,), generator=gen,
+                       device=dev) + torch.arange(k1 + k2, device=dev) * (
+                           B // (k1 + k2))
+    ch = torch.randint(0, nch, (k1 + k2,), generator=gen, device=dev)
+    ch2 = (ch[k1:] + torch.randint(1, nch, (k2,), generator=gen,
+                                   device=dev)) % nch
+    clean = wire[:, at].clone()
+
+    def bump(c, cols):
+        m = chans[c]
+        off = 1 + (torch.rand(cols.shape, generator=gen, device=dev)
+                   * (m - 1)).to(torch.int64).clamp(max=m - 2)
+        wire[c, cols] = ((wire[c, cols].to(torch.int64) + off) % m).to(
+            torch.int32)
+
+    bump(ch, at)
+    bump(ch2, at[k1:])
+    got = wire.clone()
+    ops.reset_launches()
+    counts, verdict = ops.rrns_repair_op(codec, got, verdict=True)
+    require(ops.reset_launches()["rrns_repair_op"] == 1,
+            "rrns_repair: one launch a call")
+    want_counts, want_verdict = torch.zeros(3, dtype=torch.int64,
+                                            device=dev), []
+    for a in range(0, B, CHUNK):
+        c, v = rrns_repair_plain(codec, wire[:, a : a + CHUNK], verdict=True)
+        want_counts += c
+        want_verdict.append(v)
+    want_verdict = torch.cat(want_verdict)
+    err = max(int((got[:, a : a + CHUNK].to(torch.int64)
+                   - wire[:, a : a + CHUNK]).abs().max())
+              for a in range(0, B, CHUNK))
+    max_err["rrns_repair"] = max(max_err["rrns_repair"], err)
+    require(err == 0 and torch.equal(verdict, want_verdict)
+            and torch.equal(counts, want_counts),
+            "rrns_repair kernel disagrees with its plain version on the "
+            "training wire")
+    # a two-channel fault is always caught, and refused unless a survivor
+    # base happens to read it below R (a share of about 2**-15 a channel)
+    got_counts = counts.tolist()
+    require(got_counts[2] == got_counts[0] + got_counts[1] == k1 + k2,
+            f"rrns_repair counts {got_counts} for {k1} single and {k2} "
+            "double faults")
+    require(torch.equal(got[:, at[:k1]], clean[:, :k1])
+            and bool((verdict[at[:k1]] == ch[:k1].to(torch.int32)).all())
+            and bool((verdict[at[k1:]] != -1).all()),
+            "rrns_repair: a planted fault was not located and repaired")
+    del got, verdict, want_verdict
+    wire[:, at] = clean                 # the clean wire again
+    c0, b0 = int(ch[0]), int(at[0])
+    bad = int((wire[c0, b0].to(torch.int64) + 1) % chans[c0])
+
+    def kern():
+        wire[c0, b0] = bad
+        return ops.rrns_repair_op(codec, wire)
+
+    def plain():
+        wire[c0, b0] = bad
+        for a in range(0, B, CHUNK):
+            rrns_repair_plain(codec, wire[:, a : a + CHUNK])
+
+    ms = median_ms(kern)
+    require(kern()[0].tolist() == [1, 0, 1] and torch.equal(
+        wire[:, at], clean), "rrns_repair: the timed repair")
+    plain_ms = median_ms(plain, runs=3, warmup=1)
+    nbytes = 4 * nch * B
+    row = {"phase": "timing", "kernel": "rrns_repair", "shape": MODEL_NAME,
+           "n": nch, "batch": B, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+           "bound_share": 1e3 * nbytes / HBM_BYTES_PER_S / ms,
+           "bytes": nbytes, "faults": [k1, k2], "counts": got_counts,
+           "launches_per_call": 1,
+           "card": card}
+    emit(row)
+    del wire
+    return row
 
 
 # ---------------------------------------------- slice 4: the training path
@@ -1470,7 +1587,9 @@ def train_run(dev, max_err, label, flags=(), check=None, args=TRAIN_ARGS,
     steps = probe.report()
     channels = (5 if "--rns-correct" in flags
                 else 4 if "--rns-allreduce" in flags else 0)
-    want = implied(codec_encode=1, codec_decode=1) if channels else implied()
+    want = (implied(codec_encode=1, codec_decode=1,
+                    rrns_repair=int(channels == 5)) if channels
+            else implied())
     total = Counter()
     for i, s in enumerate(steps):
         require(s["launches"] == want,
@@ -1577,7 +1696,7 @@ def train_main_path(dev, max_err) -> dict:
 def e2e_path(dev) -> dict:
     """The train_e2e example on the card: its 300 steps, a checkpoint
     every 100 (three, in the legacy format, under E2E_DIR), a final loss
-    under 3.0, and none of the seven kernels launched (the fp32 path)."""
+    under 3.0, and none of the eight kernels launched (the fp32 path)."""
     import torch
 
     from repro_torch import train_e2e
@@ -4094,7 +4213,8 @@ def main() -> int:
         return x.reshape(-1, x.shape[-1]).T.to(torch.int32).contiguous()
 
     max_err = {"mrc": 0, "modmul": 0, "compare": 0, "codec_encode": 0,
-               "codec_decode": 0.0, "mont_mul": 0, "mont_ladder": 0}
+               "codec_decode": 0.0, "rrns_repair": 0, "mont_mul": 0,
+               "mont_ladder": 0}
 
     def hold(name, got, want, where):
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -4621,7 +4741,10 @@ def main() -> int:
                "launches_per_call": 1, "card": card}
         emit(row)
         timings[(name, MODEL_NAME)] = row
-    del flat, wire
+    del wire
+    timings[("rrns_repair", MODEL_NAME)] = rrns_repair_row(
+        dev, flat, max_err, card)
+    del flat
 
     # the Montgomery kernels at RSA-2048 width on CRYPTO_TIMING_BATCH and
     # on CRYPTO_SLOTS columns: 512 distinct columns tiled (the kernels run
@@ -4728,6 +4851,7 @@ def main() -> int:
                 "compare": "src/repro/kernels/rns_compare.py:44",
                 "codec_encode": "src/repro/kernels/codec_encode.py:83",
                 "codec_decode": "src/repro/kernels/codec_decode.py:93",
+                "rrns_repair": None,
                 "mont_mul": "src/repro/kernels/mont_ladder.py:125",
                 "mont_ladder": "src/repro/kernels/mont_ladder.py:149"}
     sources = {"mrc": "src/repro_torch/kernels/csrc/mrc.cu",
@@ -4735,13 +4859,15 @@ def main() -> int:
                "compare": "src/repro_torch/kernels/csrc/rns_compare.cu",
                "codec_encode": "src/repro_torch/kernels/csrc/codec_encode.cu",
                "codec_decode": "src/repro_torch/kernels/csrc/codec_decode.cu",
+               "rrns_repair": "src/repro_torch/kernels/csrc/rrns_repair.cu",
                "mont_mul": "src/repro_torch/kernels/csrc/mont_ladder.cu",
                "mont_ladder": "src/repro_torch/kernels/csrc/mont_ladder.cu"}
     # compare at the one-column shape of the divmods and the lane's
     # canonicalisations: 17,588 of its 17,657 launches
     shape_of = {"mrc": "paper_n137", "modmul": "paper_n137",
                 "compare": DIVMOD_SHAPE, "codec_encode": MODEL_NAME,
-                "codec_decode": MODEL_NAME, "mont_mul": CRYPTO_SHAPE,
+                "codec_decode": MODEL_NAME, "rrns_repair": MODEL_NAME,
+                "mont_mul": CRYPTO_SHAPE,
                 "mont_ladder": CRYPTO_SHAPE}
     rows = []
     for name in replaces:

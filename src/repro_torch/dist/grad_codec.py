@@ -12,7 +12,9 @@ The redundant channel rides along through every ring op, so sign tests,
 magnitude clips and consistency checks are single Algorithm-1 comparisons —
 no reconstruction.  With a SECOND redundant modulus (``make(correct=True)``)
 the code is a Redundant RNS that can locate and correct any single
-corrupted channel: ``locate_fault`` / ``correct_packed``.
+corrupted channel: ``locate_fault`` / ``correct_packed`` (on the card the
+repair kernel, ``kernels.ops.rrns_repair_op``, one pass over the
+codewords; elsewhere ``_fault_scan``).
 
 Layouts:
 
@@ -388,6 +390,40 @@ class GradCodec:
         return ok
 
     # ------------------------------------------- RRNS locate-and-correct
+    def takes_repair_kernel(self, t) -> bool:
+        """Whether locating and correcting the codewords ``t`` runs the
+        repair kernel (``kernels.ops.rrns_repair_op``): a locate-and-correct
+        codec that ``use_fused`` lets the kernels take, and a tensor on the
+        card, which must be int32.  Otherwise ``_fault_scan`` runs: the
+        same bits.  Under ``backend("cuda")`` a host tensor raises, as
+        everywhere.
+
+        >>> import torch
+        >>> rrns = GradCodec.make(world=2, correct=True)
+        >>> rrns.takes_repair_kernel(torch.zeros(5, 3, dtype=torch.int32))
+        False
+        """
+        if (self.mb is None or not self.use_fused
+                or resolve_backend(t, self.base) != "cuda"):
+            return False
+        if t.dtype != torch.int32:
+            raise ValueError(f"RRNS repair on the card takes int32 codewords, "
+                             f"got {t.dtype}")
+        return True
+
+    def repair_columns_(self, rows, *, wraps: int = 0,
+                        verdict: bool = False):
+        """The repair kernel over the (n_channels, B) int32 codewords
+        ``rows`` (a view of any strides, fixed in place; see
+        ``takes_repair_kernel``): ``(counts, verdict)``, the int64
+        ``[repaired, unrepairable, scanned]`` on the card and, with
+        ``verdict=True``, ``locate_fault``'s (B,) verdicts.  Under a
+        profiler the span ``rrns.scan``."""
+        from ..kernels.ops import rrns_repair_op
+
+        with span("rrns.scan"):
+            return rrns_repair_op(self, rows, wraps=wraps, verdict=verdict)
+
     def _fault_scan(self, folded, wraps: int):
         """Per-channel (consistent?, corrected-residue) candidates: for each
         channel c an MRC over the surviving channels, a mixed-radix compare
@@ -442,6 +478,9 @@ class GradCodec:
         >>> rrns.locate_fault(bad).tolist()      # elt 1 stays clean
         [1, -1]
         """
+        raw, _ = self._split(folded)
+        if self.takes_repair_kernel(raw):
+            return self.correct_packed(raw, wraps=wraps)[1]
         ok, _ = self._fault_scan(folded, wraps)
         return self._verdict(ok)
 
@@ -460,6 +499,11 @@ class GradCodec:
         True
         """
         folded, proto = self._split(folded)
+        if self.takes_repair_kernel(folded):   # the kernel, on a copy
+            rows = folded.reshape(-1, self.n_channels).T.clone()
+            _, fault = self.repair_columns_(rows, wraps=wraps, verdict=True)
+            return (self._rejoin(rows.T.reshape(folded.shape), proto),
+                    fault.reshape(folded.shape[:-1]))
         ok, fixes = self._fault_scan(folded, wraps)
         fault = self._verdict(ok)
         with span("rrns.fix"):

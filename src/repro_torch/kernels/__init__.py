@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the RNS hot spots, for Hopper (sm_90a).
 
 Kernels: mrc (Alg. 2), modmul (ring product), rns_compare (fused Alg. 1),
-the gradient codec's codec_encode and codec_decode, and the dual-base
+the gradient codec's codec_encode and codec_decode, the RRNS repair
+(rrns_repair: locate and correct a faulted channel), and the dual-base
 Montgomery product and ladder bit (mont_ladder), each a ``.cu`` source
 under ``csrc/`` with a plain torch version beside it and a public wrapper
 in ops.py.  ``ref.py`` holds core-level oracles.
@@ -16,5 +17,6 @@ from .ops import (  # noqa: F401
     mont_mul_op,
     mrc_op,
     reset_launches,
+    rrns_repair_op,
 )
 from .ref import ref_compare, ref_modmul, ref_mrc, ref_to_ma  # noqa: F401

@@ -31,7 +31,7 @@ __all__ = ["build", "load", "check", "pointers", "view_args", "operands",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("mrc.cu", "modmul.cu", "rns_compare.cu", "codec_encode.cu",
-            "codec_decode.cu", "mont_ladder.cu")
+            "codec_decode.cu", "mont_ladder.cu", "rrns_repair.cu")
 # sm_90a (Hopper); IEEE division and no FMA contraction of the Barrett
 # product are the defaults — never add --use_fast_math (see common.cuh).
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -58,6 +58,10 @@ _SIGNATURES = {
     # r0 lo/hi, r1 lo/hi, bit, neg, nhi, 4 outs, table image, host layout,
     # B, stream
     "rns_mont_ladder": [_P] * 13 + [_L, _P],
+    # x and its (nch, B) strides, verdict (or NULL), counts (int64), table
+    # image, host layout (rrns_repair.repair_layout), warps, blocks, B,
+    # stream
+    "rns_rrns_repair": [_P, _L, _L, _P, _P, _P, _P, _I, _L, _L, _P],
 }
 
 

@@ -1,7 +1,7 @@
 """Public wrappers for the RNS kernels: ``mrc_op``, ``modmul_op``,
-``compare_op``, the gradient codec's ``codec_encode_op`` and
-``codec_decode_op``, and the dual-base Montgomery ``mont_mul_op`` and
-``mont_ladder_op``.
+``compare_op``, the gradient codec's ``codec_encode_op``,
+``codec_decode_op`` and ``rrns_repair_op``, and the dual-base Montgomery
+``mont_mul_op`` and ``mont_ladder_op``.
 
 They present the same channels-last ``(..., n)`` API as ``repro_torch.core``
 and handle:
@@ -41,10 +41,12 @@ from .mont_ladder import (mont_ladder_kernel_call, mont_ladder_plain,
                           mont_mul_kernel_call, mont_mul_plain, pack_image)
 from .mrc import column_image, mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
+from .rrns_repair import (repair_image, rrns_repair_kernel_call,
+                          rrns_repair_plain)
 
 __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
-           "codec_decode_op", "mont_mul_op", "mont_ladder_op",
-           "mont_ladder_steps_op", "reset_launches"]
+           "codec_decode_op", "rrns_repair_op", "mont_mul_op",
+           "mont_ladder_op", "mont_ladder_steps_op", "reset_launches"]
 
 
 def _on_card(t) -> bool:
@@ -263,6 +265,40 @@ def codec_decode_op(codec, summed, *, channel_major: bool = False):
     return out if channel_major else out.reshape(lead)
 
 
+@functools.lru_cache(maxsize=None)
+def _repair_image(base: RNSBase, redundant: tuple[int, ...], wraps: int,
+                  device: torch.device):
+    """The repair's table image (``rrns_repair.repair_image``) of a codec's
+    base and redundant pair at ``wraps``, from ``_survivor_tables``, as a
+    uint8 tensor on ``device``, uploaded once."""
+    from ..dist.grad_codec import _survivor_tables
+
+    tables = _survivor_tables(base.moduli, redundant, base.bits, wraps)
+    return torch.from_numpy(repair_image(base, redundant, tables)).to(device)
+
+
+def rrns_repair_op(codec, x, *, wraps: int = 0, verdict: bool = False):
+    """RRNS locate-and-correct of the (n_channels, B) int32 codewords ``x``
+    (a view of any strides, fixed in place) of a locate-and-correct codec:
+    each column that ``GradCodec.correct_packed`` would repair gets its
+    faulted residue rebuilt, with the same bits.  Returns the int64 counts
+    ``[repaired, unrepairable, scanned]`` (``scanned``: the columns that
+    failed the clean test) on ``x``'s device, and with ``verdict=True`` the
+    (B,) int32 verdicts of ``locate_fault``; nothing waits for the host.
+    """
+    if codec.mb is None:
+        raise ValueError("rrns_repair_op needs a locate-and-correct codec: "
+                         "GradCodec.make(correct=True)")
+    _check_bits(codec.base)
+    if _on_card(x):
+        image = _repair_image(codec.base, codec.redundant, int(wraps),
+                              x.device)
+        counts, out = rrns_repair_kernel_call(x, image, verdict=verdict)
+        rrns_repair_op.launches += int(x.shape[1] > 0)
+        return counts, out
+    return rrns_repair_plain(codec, x, wraps=wraps, verdict=verdict)
+
+
 # ------------------------------------------------- Montgomery (dual-base)
 @functools.lru_cache(maxsize=None)
 def _mont_tables_np(baseB: RNSBase, baseBp: RNSBase,
@@ -408,7 +444,7 @@ def reset_launches() -> dict:
     """Zero every wrapper's launch count; returns the counts it cleared."""
     counts = {}
     for op in (mrc_op, modmul_op, compare_op, codec_encode_op,
-               codec_decode_op, mont_mul_op, mont_ladder_op):
+               codec_decode_op, rrns_repair_op, mont_mul_op, mont_ladder_op):
         counts[op.__name__] = op.launches
         op.launches = 0
     return counts
@@ -419,5 +455,6 @@ modmul_op.launches = 0
 compare_op.launches = 0
 codec_encode_op.launches = 0
 codec_decode_op.launches = 0
+rrns_repair_op.launches = 0
 mont_mul_op.launches = 0
 mont_ladder_op.launches = 0

@@ -140,10 +140,15 @@ def psum(t, group):
 
 def _repair(codec, wire):
     """RRNS locate-and-correct on the local channel-major wire array, in
-    place, REPAIR_COLUMNS columns at a time (each column is its own
-    codeword, so the passes give the bits of one pass over the whole
-    buffer).  Returns the counts of repaired and of unrepairable columns."""
+    place: on the card one pass of the repair kernel over the whole wire
+    (``GradCodec.repair_columns_``), elsewhere ``correct_packed``
+    REPAIR_COLUMNS columns at a time (each column is its own codeword, so
+    the passes give the bits of one pass over the whole buffer; the chunks
+    bound the temporaries).  Returns the int64 counts of repaired and of
+    unrepairable columns, on the wire's device."""
     res = wire.residues
+    if codec.takes_repair_kernel(res):
+        return codec.repair_columns_(res)[0][:2]
     counts = torch.zeros(2, dtype=torch.int64, device=res.device)
     for a in range(0, res.shape[1], REPAIR_COLUMNS):
         part = codec.as_array(res[:, a : a + REPAIR_COLUMNS],
