@@ -1490,9 +1490,9 @@ class TrainProbe:
         return self._stage("forward_backward", self.orig["value_and_grad"],
                            loss_fn, params, batch)
 
-    def _tree_pack_rns(self, codec, grads):
+    def _tree_pack_rns(self, codec, grads, **kw):
         wire, meta = self._stage("tree_pack_rns", self.orig["tree_pack_rns"],
-                                 codec, grads)
+                                 codec, grads, **kw)
         if self._checking():
             self.checked["codec_encode"] = check_train_encode(
                 codec, grads, wire, self.max_err)
@@ -1992,8 +1992,8 @@ def mesh_train(dev, mesh, max_err) -> dict:
 
     # the checks run inside the step, as the buffers appear: holding them
     # to its end would add 8 GB to a step that peaks near the card's size
-    def pack_probe(c, grads):
-        wire, meta = pack(c, grads)
+    def pack_probe(c, grads, **kw):
+        wire, meta = pack(c, grads, **kw)
         row["encode_checked"] = check_train_encode(c, grads, wire, max_err)
         return wire, meta
 

@@ -259,12 +259,13 @@ class GradCodec:
         )
         return torch.cat([packed, xb[..., None].to(packed.dtype)], dim=-1)
 
-    def encode_packed(self, g, *, channel_major: bool = False):
+    def encode_packed(self, g, *, channel_major: bool = False, out=None):
         """Transport-path encode: the codec kernel when ``use_fused`` else
         the f64 path — the same residues either way.
 
         ``channel_major=True`` returns the contiguous ``(n_channels, B)``
-        wire layout of the flattened input; the default is leaf-major.
+        wire layout of the flattened input, written into ``out`` when
+        given (an int32 tensor of that shape); the default is leaf-major.
 
         >>> import torch
         >>> codec = GradCodec.make(world=2)
@@ -276,9 +277,14 @@ class GradCodec:
         if self._kernels(g):
             from ..kernels.ops import codec_encode_op
 
-            return codec_encode_op(self, g, channel_major=channel_major)
+            return codec_encode_op(self, g, channel_major=channel_major,
+                                   out=out)
+        if out is not None and not channel_major:
+            raise ValueError("encode_packed: out= takes the channel-major "
+                             "layout")
         if channel_major:
-            return self.encode(g.reshape(-1)).T.contiguous()
+            wire = self.encode(g.reshape(-1)).T
+            return wire.contiguous() if out is None else out.copy_(wire)
         return self.encode(g)
 
     def encode_array(self, g, *, channel_major: bool = False) -> RnsArray:
@@ -547,10 +553,11 @@ class _TreeMeta:
         return tuple(math.prod(s) for s in self.shapes)
 
 
-def tree_pack(codec: GradCodec, grads):
+def tree_pack(codec: GradCodec, grads, *, out=None):
     """Flatten a gradient tree (leaf order as the reference's) into ONE
-    contiguous channel-major ``(n_channels, B_total)`` int32 wire buffer.
-    Returns ``(buf, meta)``; ``meta`` is what ``tree_decode`` needs."""
+    contiguous channel-major ``(n_channels, B_total)`` int32 wire buffer
+    (``out`` when given).  Returns ``(buf, meta)``; ``meta`` is what
+    ``tree_decode`` needs."""
     leaves, treedef = _tree.flatten(grads)
     if not leaves:
         raise ValueError("tree_pack: empty gradient pytree")
@@ -560,13 +567,13 @@ def tree_pack(codec: GradCodec, grads):
         dtypes=tuple(l.dtype for l in leaves),
     )
     flat = torch.cat([l.reshape(-1).to(torch.float32) for l in leaves])
-    return codec.encode_packed(flat, channel_major=True), meta
+    return codec.encode_packed(flat, channel_major=True, out=out), meta
 
 
-def tree_pack_rns(codec: GradCodec, grads):
+def tree_pack_rns(codec: GradCodec, grads, *, out=None):
     """``tree_pack`` with a typed wire buffer: the whole gradient tree as
     ONE channel-major ``RnsArray`` (layout BASE_MA/RRNS per the codec)."""
-    buf, meta = tree_pack(codec, grads)
+    buf, meta = tree_pack(codec, grads, out=out)
     return codec.as_array(buf, channel_major=True), meta
 
 
@@ -575,7 +582,7 @@ def tree_decode(codec: GradCodec, summed, meta: _TreeMeta, denom=1.0):
     / ``denom``; each leaf is a view of one flat decoded buffer, cast to the
     leaf's own dtype.  Under a profiler the span ``codec.decode``."""
     with span("codec.decode"):
-        flat = codec.decode_summed(summed, channel_major=True) / denom
+        flat = codec.decode_summed(summed, channel_major=True).div_(denom)
         leaves, off = [], 0
         for shape, dtype, size in zip(meta.shapes, meta.dtypes, meta.sizes):
             leaves.append(flat[off : off + size].reshape(shape).to(dtype))

@@ -45,9 +45,10 @@ def codec_encode_plain(g, m, pow15, off, *, scale: float, qh: int, ql: int):
 
 
 def codec_encode_kernel_call(g, m, pow15, off, *, scale: float, qh: int,
-                             ql: int):
+                             ql: int, out=None):
     """Launch ``csrc/codec_encode.cu`` on PyTorch's current stream (no sync).
-    ``m``, ``pow15`` and ``off`` are host sequences of nch ints."""
+    ``m``, ``pow15`` and ``off`` are host sequences of nch ints; ``out``,
+    when given, the contiguous (nch, B) int32 tensor written."""
     tabs = [np.ascontiguousarray(t, dtype=np.int32) for t in (m, pow15, off)]
     nch = len(tabs[0])
     if g.dim() != 1 or any(t.shape != (nch,) for t in tabs):
@@ -55,7 +56,11 @@ def codec_encode_kernel_call(g, m, pow15, off, *, scale: float, qh: int,
                          f"are needed, got {tuple(g.shape)} and "
                          f"{[t.shape for t in tabs]}")
     (B,) = g.shape
-    out = torch.empty((nch, B), dtype=torch.int32, device=g.device)
+    if out is None:
+        out = torch.empty((nch, B), dtype=torch.int32, device=g.device)
+    elif tuple(out.shape) != (nch, B):   # dtype and device: ``pointers``
+        raise ValueError(f"codec_encode: out is {tuple(out.shape)}, not "
+                         f"({nch}, {B})")
     ptrs = (build.pointers("codec_encode", g, dtype=torch.float32)
             + build.pointers("codec_encode", out))
     if B == 0:

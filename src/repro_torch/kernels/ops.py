@@ -218,23 +218,28 @@ def _decode_tables(base: RNSBase):
     return tuple(base.moduli), np.asarray(base.inv_tri_np, np.int64), half
 
 
-def codec_encode_op(codec, g, *, channel_major: bool = False):
+def codec_encode_op(codec, g, *, channel_major: bool = False, out=None):
     """Gradient-codec encode: f32 tensor (...,) -> int32 residues
     (..., nch), bitwise equal to ``GradCodec.encode``; nch counts the base
     channels and the codec's redundant ones (m_a, and m_b on a
     locate-and-correct codec).
 
     ``channel_major=True`` returns the kernels' (nch, B) layout of the
-    flattened input, the wire format of the bucketed transport.
+    flattened input, the wire format of the bucketed transport, written
+    into ``out`` when given.
     """
     _check_codec(codec, "encode")
+    if out is not None and not channel_major:
+        raise ValueError("codec_encode: out= takes the channel-major layout")
     m, pow15, off = _encode_tables(codec.base, codec.redundant)
     row = g.reshape(-1).to(torch.float32).contiguous()
     kw = dict(scale=float(1 << codec.frac_bits), qh=codec.qmax >> 15,
               ql=codec.qmax & 0x7FFF)
     if _on_card(g):
-        out = codec_encode_kernel_call(row, m, pow15, off, **kw)
+        out = codec_encode_kernel_call(row, m, pow15, off, out=out, **kw)
         codec_encode_op.launches += int(row.numel() > 0)
+    elif out is not None:
+        out.copy_(codec_encode_plain(row, m, pow15, off, **kw))
     else:
         out = codec_encode_plain(row, m, pow15, off, **kw)
     if channel_major:

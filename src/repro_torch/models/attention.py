@@ -4,7 +4,8 @@ the cached decode path of the serve engine.
 ``flash_attention`` is the reference's chunked attention
 (``repro/models/attention.py:48-322``): q_chunk x kv_chunk blocks under an
 online softmax, so live memory is O(chunk²) rather than O(s²).  q is
-scaled by ``hd ** -0.5`` in q's dtype, scores are f32 with the causal mask
+scaled by ``hd ** -0.5`` (or a ``scale`` given: Zamba2's shared block takes
+``(hd / 2) ** -0.5``) in q's dtype, scores are f32 with the causal mask
 ``j <= i`` and the window mask ``j > i - window``, the running max, sum
 and accumulator are f32, probabilities are cast to v's dtype for the PV
 product, and the output is ``acc / max(l, 1e-30)``; under GQA query head
@@ -72,14 +73,16 @@ NEG_INF = -1e30
 IMPLS = ("vjp", "scan", "unrolled")
 
 
-def init_attn(gen, d, heads, kv, hd, dtype, device, lead=()):
-    """Projection weights; ``lead`` prefixes each shape (the layer axis)."""
+def init_attn(gen, d, heads, kv, hd, dtype, device, lead=(), d_out=None):
+    """Projection weights from a ``d``-wide input to a ``d_out``-wide
+    output (``d`` unless given); ``lead`` prefixes each shape (the layer
+    axis)."""
     lead = tuple(lead)
     return {
         "wq": init_linear(gen, lead + (d, heads, hd), dtype, device),
         "wk": init_linear(gen, lead + (d, kv, hd), dtype, device),
         "wv": init_linear(gen, lead + (d, kv, hd), dtype, device),
-        "wo": init_linear(gen, lead + (heads, hd, d), dtype, device),
+        "wo": init_linear(gen, lead + (heads, hd, d_out or d), dtype, device),
     }
 
 
@@ -136,12 +139,13 @@ def _groups_for(q, k, v, *scales):
 # -------------------------------------------------------- chunked attention
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     q_chunk: int = 512, kv_chunk: int = 512,
-                    impl: str = "vjp"):
+                    impl: str = "vjp", scale=None):
     """q: (b, sq, h, hd); k, v: (b, skv, g, hd), h = g*r -> (b, sq, h, hd).
 
     ``window``: None, or a host int W: attend to (i-W, i] (a global
     layer's ``NO_WINDOW`` reaches every chunk).  ``impl``: "vjp", "scan"
-    or "unrolled" (module docstring).  The chunks are clamped to the
+    or "unrolled" (module docstring).  ``scale``: the softmax scale,
+    ``hd ** -0.5`` when None.  The chunks are clamped to the
     lengths; a length that is not a whole number of them raises, and so
     does a causal call whose chunks or lengths differ."""
     sq, skv = q.shape[1], k.shape[1]
@@ -156,19 +160,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r}, expected one of {IMPLS}")
     run = functools.partial(_flash_local, causal=causal, window=window,
-                            q_chunk=q_chunk, kv_chunk=kv_chunk, impl=impl)
+                            q_chunk=q_chunk, kv_chunk=kv_chunk, impl=impl,
+                            scale=scale)
     if hasattr(q, "device_mesh"):
         return _flash_on_mesh(run, q, k, v)
     return run(q, k, v)
 
 
-def _flash_local(q, k, v, *, causal, window, q_chunk, kv_chunk, impl):
+def _flash_local(q, k, v, *, causal, window, q_chunk, kv_chunk, impl,
+                 scale):
     if impl == "unrolled":
         return _flash_fwd_chunks(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                 skip=False)[0]
+                                 scale=scale, skip=False)[0]
     route = _FlashVJP if impl == "vjp" else _FlashScan
-    return route.apply(q, k, v, causal, window, q_chunk, kv_chunk)
+    return route.apply(q, k, v, causal, window, q_chunk, kv_chunk, scale)
 
 
 def _flash_on_mesh(run, q, k, v):
@@ -255,7 +261,7 @@ def _mask(s, bad, r, q_chunk):
 
 
 def _flash_fwd_chunks(q, k, v, *, causal, window, q_chunk, kv_chunk,
-                      skip=True):
+                      scale=None, skip=True):
     """The shared forward (the reference's ``_flash_fwd_chunks``): (out
     (b, sq, h, hd) in q's dtype, lse (b, g, r, sq) f32).  With ``skip``
     each query chunk visits ``kv_bounds``' chunks; without, every chunk up
@@ -266,7 +272,8 @@ def _flash_fwd_chunks(q, k, v, *, causal, window, q_chunk, kv_chunk,
     r = h // g
     nq, nk = sq // q_chunk, skv // kv_chunk
     f32, dev = torch.float32, q.device
-    qs = _rows(q * hd ** -0.5, q_chunk, g, f32)      # scaled in q's dtype
+    scale = hd ** -0.5 if scale is None else scale
+    qs = _rows(q * scale, q_chunk, g, f32)           # scaled in q's dtype
     kf, vf = _heads_major(k, f32), _heads_major(v, f32)
     masks, outs, lses = {}, [], []
     for qi in range(nq):
@@ -295,7 +302,7 @@ def _flash_fwd_chunks(q, k, v, *, causal, window, q_chunk, kv_chunk,
 
 
 def _flash_bwd_chunks(q, k, v, out, lse, dout, *, causal, window, q_chunk,
-                      kv_chunk):
+                      kv_chunk, scale=None):
     """The reference's ``_flash_vjp_bwd``: each visited chunk's
     probabilities recomputed from ``lse``, O(chunk²) live memory; dk and dv
     accumulated in f32 chunk by chunk; (dq, dk, dv) in their inputs'
@@ -313,7 +320,7 @@ def _flash_bwd_chunks(q, k, v, out, lse, dout, *, causal, window, q_chunk,
     r = h // g
     nq, nk = sq // q_chunk, skv // kv_chunk
     f32, dev = torch.float32, q.device
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qs, dos = _rows(q, q_chunk, g, f32), _rows(dout, q_chunk, g, f32)
     deltas = _rows((dout.to(f32) * out.to(f32)).sum(-1, keepdim=True),
                    q_chunk, g, f32)                   # (nq, b, g, r*qc, 1)
@@ -350,19 +357,20 @@ class _FlashVJP(torch.autograd.Function):
     the hand-written chunked backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk, scale):
         out, lse = _flash_fwd_chunks(q, k, v, causal=causal, window=window,
-                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                     scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.flags = dict(causal=causal, window=window, q_chunk=q_chunk,
-                         kv_chunk=kv_chunk)
+                         kv_chunk=kv_chunk, scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         return (*_flash_bwd_chunks(q, k, v, out, lse, dout, **ctx.flags),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class _FlashScan(torch.autograd.Function):
@@ -370,9 +378,10 @@ class _FlashScan(torch.autograd.Function):
     as the reference's traced loop bounds refuse reverse mode."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk, scale):
         return _flash_fwd_chunks(q, k, v, causal=causal, window=window,
-                                 q_chunk=q_chunk, kv_chunk=kv_chunk)[0]
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                 scale=scale)[0]
 
     @staticmethod
     def backward(ctx, dout):
@@ -431,11 +440,12 @@ def _out(p, o):
 
 def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
                  window=None, enc=None, q_chunk=512, kv_chunk=512,
-                 return_kv=False, impl="vjp"):
-    """Project -> rope -> attend (``flash_attention`` by route ``impl``)
-    -> project.  x: (b, s, d).  ``enc`` (b, F, d) switches to
-    cross-attention against encoder states: k and v are projected from
-    ``enc``, only q is rotated, and nothing is masked.  With ``return_kv``
+                 return_kv=False, impl="vjp", scale=None):
+    """Project -> rope -> attend (``flash_attention`` by route ``impl``,
+    at softmax ``scale``, ``hd ** -0.5`` when None) -> project.  x: (b, s,
+    d), the output as wide as ``p["wo"]`` makes it.  ``enc`` (b, F, d)
+    switches to cross-attention against encoder states: k and v are
+    projected from ``enc``, only q is rotated, and nothing is masked.  With ``return_kv``
     also the keys and the values, (b, s, kv, hd) each: what a prefill
     writes into the cache."""
     q, k, v = _project(p, x, src=enc)
@@ -449,7 +459,7 @@ def attn_forward(p, x, positions, *, heads, kv, hd, theta, causal=True,
         k = rope(k, positions, theta)
     o = flash_attention(q, k, v, causal=causal and enc is None,
                         window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                        impl=impl)
+                        impl=impl, scale=scale)
     o = constrain(o, "?batch_plus", None, "heads", None)
     out = constrain(_out(p, o), "batch", None, None)
     return (out, (k, v)) if return_kv else out

@@ -7,7 +7,11 @@ backbone, stub audio frontend), vlm (LM backbone + stub patch embeddings).
 The port runs all six (``models.model``).
 
 Every field of the reference's dataclass is kept, so the registry's configs
-and their ``smoke()`` reductions are the same values in both packages.
+and their ``smoke()`` reductions are the same values in both packages.  The
+port adds fields of its own (``PORT_FIELDS``), each defaulting to the
+reference's behaviour: ``ssm_groups`` B/C groups of the SSD, and Zamba2's
+published hybrid layout (``hybrid_layer_ids``, ``n_mem_blocks``,
+``adapter_rank``; ``ssm_models``), which no registry config sets.
 ``seq_parallel`` places the residual stream on a mesh
 (``transformer._seq_parallel``), ``zero1`` the optimizer moments
 (``dist.sharding.opt_state_specs``), ``attn_impl`` picks the training
@@ -18,7 +22,12 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "PORT_FIELDS"]
+
+# the fields the reference's dataclass lacks; at their defaults every
+# config runs the reference's model
+PORT_FIELDS = ("ssm_groups", "hybrid_layer_ids", "n_mem_blocks",
+               "adapter_rank")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +41,7 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab: int
-    act: str = "swiglu"       # swiglu | geglu
+    act: str = "swiglu"       # swiglu | geglu (tanh GELU) | geglu_exact
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
@@ -83,6 +92,24 @@ class ModelConfig:
                                 # smaller saved activations)
     zero1: bool = True
 
+    # port only (PORT_FIELDS).  B and C of the SSD in `ssm_groups` groups,
+    # each shared by ssm_heads / ssm_groups heads.
+    ssm_groups: int = 1
+    # Zamba2's published hybrid layout, when `hybrid_layer_ids` is set: the
+    # layers at those indices run, before their Mamba2 layer, one of
+    # `n_mem_blocks` shared attention+MLP blocks in turn over
+    # concat(hidden, embedding), with an MLP adapter of rank `adapter_rank`
+    # and a d x d linear of their own (``ssm_models``).  Empty: the
+    # `attn_every` layout.
+    hybrid_layer_ids: tuple = ()
+    n_mem_blocks: int = 0
+    adapter_rank: int = 0
+
+    def __post_init__(self):
+        # a JSON list (a benchmark's model block) becomes a hashable tuple
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
+
     @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
@@ -95,11 +122,28 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv, 1)
 
+    @property
+    def published_hybrid(self) -> bool:
+        """Zamba2's published layout (``hybrid_layer_ids`` set)."""
+        return bool(self.hybrid_layer_ids)
+
     def validate(self):
         if self.n_heads and self.n_kv:
             assert self.n_heads % self.n_kv == 0
         if self.family in ("ssm", "hybrid"):
             assert self.ssm_state > 0 and self.d_inner % self.ssm_headdim == 0
+            assert self.ssm_groups >= 1 and self.ssm_heads % self.ssm_groups == 0
+        assert self.act in ("swiglu", "geglu", "geglu_exact"), self.act
+        if self.published_hybrid:
+            ids = self.hybrid_layer_ids
+            assert self.family == "hybrid" and not self.attn_every
+            assert list(ids) == sorted(set(ids)) and 0 <= ids[0]
+            assert ids[-1] < self.n_layers, (ids, self.n_layers)
+            assert 1 <= self.n_mem_blocks <= len(ids) and self.adapter_rank > 0
+            # the attention reads concat(hidden, embedding): 2 d wide
+            assert self.n_heads * self.head_dim == 2 * self.d_model
+        else:
+            assert not (self.n_mem_blocks or self.adapter_rank)
         if self.family == "moe":
             assert self.n_experts > 0 and self.top_k > 0 and self.expert_dff > 0
         if self.family == "encdec":
@@ -111,7 +155,20 @@ class ModelConfig:
         return self
 
     def smoke(self) -> "ModelConfig":
-        """A reduced same-family config for CPU smoke tests."""
+        """A reduced same-family config for CPU smoke tests; the published
+        hybrid layout keeps its first two hybrid layers (both blocks of a
+        two-block rotation) and the layers up to them."""
+        cfg = self._smoke()
+        if not self.published_hybrid:
+            return cfg
+        ids = self.hybrid_layer_ids[:2]
+        return dataclasses.replace(
+            cfg, n_layers=ids[-1] + 1, hybrid_layer_ids=ids,
+            n_mem_blocks=min(self.n_mem_blocks, len(ids)),
+            head_dim=2 * cfg.d_model // cfg.n_heads,
+            adapter_rank=min(self.adapter_rank, 16))
+
+    def _smoke(self) -> "ModelConfig":
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",

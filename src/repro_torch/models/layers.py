@@ -5,7 +5,7 @@ layouts (``repro/models/layers.py``).  Every dtype is explicit, and each
 rounds where the reference rounds: the norm's mean in f32, the rotary
 angles in f32 cast to the activations' dtype, the embedding scale computed
 in the compute dtype, GeGLU's GELU in its tanh form (``jax.nn.gelu``'s
-default).
+default; "geglu_exact" takes the exact, erf form).
 """
 from __future__ import annotations
 
@@ -166,11 +166,21 @@ def on_shards(fn, mesh, args, out_placements):
                      device_mesh=mesh)(*ts)
 
 
-def gated_mlp(x, wi, wo, act: str):
-    """SwiGLU / GeGLU: wi: (d, 2, ff), wo: (ff, d).  x: (b, s, d).  With
-    wi split along ff on a mesh the gate and up products run apart, each
-    column-parallel; an x split along its sequence runs on each device's
-    shard (``_mlp_on_mesh``)."""
+_GATES = {"swiglu": F.silu,
+          "geglu": functools.partial(F.gelu, approximate="tanh"),
+          "geglu_exact": F.gelu}
+
+
+def gated_mlp(x, wi, wo, act: str, adapter=None):
+    """SwiGLU / GeGLU (tanh GELU) / exact-GELU GeGLU ("geglu_exact"): wi:
+    (d, 2, ff), wo: (ff, d).  x: (b, s, d).  ``adapter``: None, or (A (d,
+    r), B (r, 2 ff)), whose low-rank (x A) B adds to the gate/up product
+    (Zamba2's per-layer MLP adapter; plain tensors).  With wi split along
+    ff on a mesh the gate and up products run apart, each column-parallel;
+    an x split along its sequence runs on each device's shard
+    (``_mlp_on_mesh``)."""
+    if adapter is not None and (split_on(x, 1) or split_on(wi, 2)):
+        raise ValueError("gated_mlp: an adapter takes plain tensors")
     if split_on(x, 1):
         return constrain(_mlp_on_mesh(x, wi, wo, act), "batch", None, None)
     dt = x.dtype
@@ -179,11 +189,14 @@ def gated_mlp(x, wi, wo, act: str):
     if split_on(w, 2):  # (2, ff) cannot flatten with ff split
         h = torch.stack([x @ w[:, 0], x @ w[:, 1]], dim=-2)
     else:
-        h = (x @ w.reshape(d, 2 * ff)).unflatten(-1, (2, ff))
+        h = x @ w.reshape(d, 2 * ff)
+        if adapter is not None:
+            h = h + (x @ adapter[0].to(dt)) @ adapter[1].to(dt)
+        h = h.unflatten(-1, (2, ff))
     h = constrain(h, "batch", None, None, "ff")
     gate, up = h[..., 0, :], h[..., 1, :]
-    g = F.gelu(gate, approximate="tanh") if act == "geglu" else F.silu(gate)
-    return constrain((g * up) @ wo.to(dt), "batch", None, None)
+    return constrain((_GATES[act](gate) * up) @ wo.to(dt), "batch", None,
+                     None)
 
 
 def _mlp_on_mesh(x, wi, wo, act: str):

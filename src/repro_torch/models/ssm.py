@@ -38,12 +38,14 @@ __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode",
 
 
 def _dims(cfg):
+    """(d_inner, heads, headdim, state, conv channels, B/C groups)."""
     d_in = cfg.d_inner
     h = cfg.ssm_heads
     p = cfg.ssm_headdim
     ds = cfg.ssm_state
-    conv_ch = d_in + 2 * ds  # x, B, C share the conv (n_groups = 1)
-    return d_in, h, p, ds, conv_ch
+    G = cfg.ssm_groups
+    conv_ch = d_in + 2 * G * ds  # x and each group's B, C share the conv
+    return d_in, h, p, ds, conv_ch, G
 
 
 def init_mamba2(gen, cfg, dtype, device, lead=()):
@@ -54,8 +56,8 @@ def init_mamba2(gen, cfg, dtype, device, lead=()):
     axes)."""
     lead = tuple(lead)
     d = cfg.d_model
-    d_in, h, p, ds, conv_ch = _dims(cfg)
-    proj_out = 2 * d_in + 2 * ds + h  # z, x, B, C, dt
+    d_in, h, p, ds, conv_ch, G = _dims(cfg)
+    proj_out = 2 * d_in + 2 * G * ds + h  # z, x, B, C, dt
     f32 = dict(dtype=torch.float32, device=device)
 
     def uniform(lo, hi):
@@ -144,48 +146,60 @@ def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
     """The chunked SSD scan in the dtype of its inputs.
 
     x: (b, s, h, p), dt: (b, s, h), A: (h,), B, C: (b, s, ds) (one
-    group); ``chunk`` divides s; ``initial_state`` (b, h, ds, p) or None
-    for zeros.  Returns (y (b, s, h, p) without the D skip, the final state
-    (b, h, ds, p)).  Each chunk state is kept as (ds, h, p), the layout
-    the off-diagonal product reads."""
+    group) or (b, s, G, ds) (G groups, group g read by heads g h/G ..
+    (g + 1) h/G - 1, by a broadcast view); ``chunk`` divides s;
+    ``initial_state`` (b, h, ds, p) or None for zeros.  Returns (y (b, s,
+    h, p) without the D skip, the final state (b, h, ds, p)).  Each chunk
+    state is kept as (b G, ds, h/G, p), the layout the off-diagonal product
+    reads.  One group runs as a group axis of size one, folded into the
+    batch where the chunk states are stacked: the same products and
+    kernels as a call without the axis."""
     b, s, h, p = x.shape
-    ds = B.shape[-1]
+    if B.ndim == 3:
+        B, C = B[:, :, None], C[:, :, None]
+    G, ds = B.shape[2], B.shape[3]
+    hg = h // G
     Q = chunk
     nc = s // Q
     xc = x.reshape(b, nc, Q, h, p)
-    Bc = B.reshape(b, nc, Q, ds)
-    Cc = C.reshape(b, nc, Q, ds)
+    Bc = B.reshape(b, nc, Q, G, ds).transpose(2, 3)       # (b, c, G, Q, ds)
+    Cc = C.reshape(b, nc, Q, G, ds).transpose(2, 3)
     dtc = dt.reshape(b, nc, Q, h)
     cum = torch.cumsum((dt * A).reshape(b, nc, Q, h), dim=2)
 
     # within a chunk: y_diag[q] = sum_k (C_q . B_k) L[q, k] dt_k x_k, as one
     # (b, c, h, q, k) weight times x over k
     cum_h = cum.permute(0, 1, 3, 2)                       # (b, c, h, Q)
-    scores = Cc @ Bc.transpose(-1, -2)                    # (b, c, q, k)
-    M = scores[:, :, None] * _decay_mask(cum_h) * dtc.permute(0, 1, 3, 2)[
-        :, :, :, None, :]                                 # (b, c, h, q, k)
+    scores = Cc @ Bc.transpose(-1, -2)                    # (b, c, G, q, k)
+    M = (scores[:, :, :, None] * _decay_mask(cum_h).view(b, nc, G, hg, Q, Q)
+         * dtc.permute(0, 1, 3, 2).reshape(b, nc, G, hg, 1, Q)).reshape(
+             b, nc, h, Q, Q)                              # (b, c, h, q, k)
     y_diag = (M @ xc.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
 
-    # chunk states: S_c = sum_k exp(cum_last - cum_k) dt_k B_k (x) x_k
+    # chunk states: S_c = sum_k exp(cum_last - cum_k) dt_k B_k (x) x_k, one
+    # (ds, h/G, p) state a (row, group), (b G, c, ds, h/G, p)
     suffix = torch.exp(cum[:, :, -1:, :] - cum)          # (b, c, Q, h)
     xw = xc * (suffix * dtc)[..., None]
-    S_c = (Bc.transpose(-1, -2) @ xw.reshape(b, nc, Q, h * p)).reshape(
-        b, nc, ds, h, p)
+    S_c = (Bc.transpose(-1, -2) @ xw.reshape(b, nc, Q, G, hg * p).transpose(
+        2, 3)).transpose(1, 2).reshape(b * G, nc, ds, hg, p)
 
     # between chunks: S_prev[c] = exp(total[c-1]) S_prev[c-1] + S_c[c-1]
     total = torch.exp(cum[:, :, -1, :])                   # (b, c, h)
-    S = (x.new_zeros((b, ds, h, p)) if initial_state is None
-         else initial_state.permute(0, 2, 1, 3))
+    S = (x.new_zeros((b * G, ds, hg, p)) if initial_state is None
+         else initial_state.view(b, G, hg, ds, p).transpose(2, 3).reshape(
+             b * G, ds, hg, p))
     prevs = []
     for c in range(nc):
         prevs.append(S)
-        S = S * total[:, c, None, :, None] + S_c[:, c]
-    S_prevs = torch.stack(prevs, dim=1)                   # (b, c, ds, h, p)
+        S = S * total[:, c].view(b, G, hg).reshape(b * G, 1, hg, 1) + S_c[:, c]
+    S_prevs = torch.stack(prevs, dim=1)                   # (b G, c, ds, hg, p)
 
     # from earlier chunks: y_off[q] = exp(cum_q) C_q . S_prev
-    y_off = (Cc @ S_prevs.reshape(b, nc, ds, h * p)).reshape(
-        b, nc, Q, h, p) * torch.exp(cum)[..., None]
-    return (y_diag + y_off).reshape(b, s, h, p), S.permute(0, 2, 1, 3)
+    y_off = (Cc @ S_prevs.view(b, G, nc, ds, hg * p).transpose(1, 2)
+             ).transpose(2, 3).reshape(b, nc, Q, h, p) * torch.exp(cum)[
+                 ..., None]
+    return ((y_diag + y_off).reshape(b, s, h, p),
+            S.view(b, G, ds, hg, p).transpose(2, 3).reshape(b, h, ds, p))
 
 
 def _ssd_on_mesh(x, dt, A, B, C, D, chunk, initial_state):
@@ -234,33 +248,39 @@ def mamba2_forward(params, cfg, u, *, initial_state=None):
     prompt is shorter."""
     dt_ = u.dtype
     b, s, d = u.shape
-    d_in, h, p, ds, conv_ch = _dims(cfg)
+    d_in, h, p, ds, conv_ch, G = _dims(cfg)
     Q = min(cfg.ssm_chunk, s)
     if s % Q:
         raise ValueError("sequence must be a multiple of ssm_chunk")
 
     zxbcdt = u @ params["in_proj"].to(dt_)
     z = zxbcdt[..., :d_in]
-    xBC_raw = zxbcdt[..., d_in:2 * d_in + 2 * ds]   # x, B, C side by side
-    dtraw = zxbcdt[..., 2 * d_in + 2 * ds:]
+    xBC_raw = zxbcdt[..., d_in:d_in + conv_ch]   # x, B, C side by side
+    dtraw = zxbcdt[..., d_in + conv_ch:]
     xBC = _causal_depthwise_conv(xBC_raw, params["conv_w"].to(dt_),
                                  params["conv_b"].to(dt_))
-    x, B, C = torch.split(xBC, [d_in, ds, ds], dim=-1)
+    x, B, C = torch.split(xBC, [d_in, G * ds, G * ds], dim=-1)
 
     f32 = torch.float32
     x = constrain(x.reshape(b, s, h, p).to(f32), "batch", None, "heads", None)
     dt = _softplus(dtraw.to(f32) + params["dt_bias"])    # (b, s, h)
     A = -torch.exp(params["A_log"])                      # (h,)
+    B, C = B.to(f32), C.to(f32)
+    if G > 1:                                            # (b, s, G, ds)
+        B, C = B.unflatten(-1, (G, ds)), C.unflatten(-1, (G, ds))
     if split_on(x, 2):
-        y, S_last = _ssd_on_mesh(x, dt, A, B.to(f32), C.to(f32),
-                                 params["D"], Q, initial_state)
+        if G > 1:
+            raise ValueError(f"ssm_groups={G}: the SSD on a mesh splits "
+                             "heads, which groups of B and C do not follow")
+        y, S_last = _ssd_on_mesh(x, dt, A, B, C, params["D"], Q,
+                                 initial_state)
     else:
-        y, S_last = ssd(x, dt, A, B.to(f32), C.to(f32), Q, initial_state)
+        y, S_last = ssd(x, dt, A, B, C, Q, initial_state)
         y = (y + params["D"][:, None] * x).reshape(b, s, d_in)
 
-    # gated output norm + projection
-    y = rms_norm((y * _silu(z.to(f32))).to(dt_), params["norm"],
-                 cfg.norm_eps)
+    # gated output norm (over each group's d_inner / G channels) + projection
+    y = _gated_norm((y * _silu(z.to(f32))).to(dt_), params["norm"], G,
+                    cfg.norm_eps)
     y = constrain(y, "batch", None, "dinner")
     out = constrain(y @ params["out_proj"].to(dt_), "batch", None, None)
     W1 = cfg.ssm_conv - 1
@@ -270,8 +290,26 @@ def mamba2_forward(params, cfg, u, *, initial_state=None):
     return out, {"S": S_last, "conv": tail}
 
 
+def _gated_norm(y, scale, G: int, eps: float):
+    """``rms_norm`` of the gated output over each of the G groups' d_inner
+    / G channels (Mamba2's grouped RMSNormGated); one group: over all."""
+    if G == 1:
+        return rms_norm(y, scale, eps)
+    return rms_norm(y.unflatten(-1, (G, -1)), scale.view(G, -1),
+                    eps).flatten(-2)
+
+
+def _to_heads(B, G: int, h: int):
+    """A decode step's (b, G ds) B or C as (b, 1, ds) for one group, else
+    each group's row repeated for its h / G heads, (b, h, ds)."""
+    b = B.shape[0]
+    if G == 1:
+        return B[:, None]
+    return B.view(b, G, 1, -1).expand(b, G, h // G, -1).reshape(b, h, -1)
+
+
 def init_ssm_state(cfg, batch, dtype=torch.float32, device="cuda"):
-    _, h, p, ds, conv_ch = _dims(cfg)
+    _, h, p, ds, conv_ch, _ = _dims(cfg)
     return {
         "S": torch.zeros((batch, h, ds, p), dtype=torch.float32,
                          device=device),
@@ -285,12 +323,12 @@ def mamba2_decode(params, cfg, u, state):
     (y, the new state)."""
     dt_ = u.dtype
     b = u.shape[0]
-    d_in, h, p, ds, conv_ch = _dims(cfg)
+    d_in, h, p, ds, conv_ch, G = _dims(cfg)
 
     zxbcdt = u @ params["in_proj"].to(dt_)
     z = zxbcdt[..., :d_in]
-    xBC = zxbcdt[:, 0, d_in:2 * d_in + 2 * ds]             # (b, conv_ch)
-    dtraw = zxbcdt[:, 0, 2 * d_in + 2 * ds:]
+    xBC = zxbcdt[:, 0, d_in:d_in + conv_ch]                # (b, conv_ch)
+    dtraw = zxbcdt[:, 0, d_in + conv_ch:]
 
     # conv ring: window = [conv_state, new]; the window's dot in f32, as a
     # contraction of compute-dtype operands accumulates
@@ -299,20 +337,20 @@ def mamba2_decode(params, cfg, u, state):
     w = params["conv_w"].to(dt_)
     conv = (win.to(f32) * w.to(f32)).sum(dim=1).to(dt_)
     conv_out = _silu(conv + params["conv_b"].to(dt_))
-    x, B, C = torch.split(conv_out, [d_in, ds, ds], dim=-1)
+    x, B, C = torch.split(conv_out, [d_in, G * ds, G * ds], dim=-1)
 
     x = x.reshape(b, h, p).to(f32)
-    B = B.to(f32)                                            # (b, ds)
-    C = C.to(f32)
+    B = _to_heads(B.to(f32), G, h)                           # (b, 1 | h, ds)
+    C = _to_heads(C.to(f32), G, h)
     dt = _softplus(dtraw.to(f32) + params["dt_bias"])       # (b, h)
     A = -torch.exp(params["A_log"])
     decay = torch.exp(dt * A)                                # (b, h)
 
     S = state["S"] * decay[..., None, None] + (
-        B[:, None, :, None] * (dt[..., None] * x)[:, :, None, :])
-    y = (C[:, None, None, :] @ S)[:, :, 0] + params["D"][:, None] * x
+        B[:, :, :, None] * (dt[..., None] * x)[:, :, None, :])
+    y = (C[:, :, None, :] @ S)[:, :, 0] + params["D"][:, None] * x
     y = y.reshape(b, 1, d_in)
-    y = rms_norm((y * _silu(z.to(f32))).to(dt_), params["norm"],
-                 cfg.norm_eps)
+    y = _gated_norm((y * _silu(z.to(f32))).to(dt_), params["norm"], G,
+                    cfg.norm_eps)
     out = y @ params["out_proj"].to(dt_)
     return out, {"S": S, "conv": win[:, 1:]}

@@ -13,6 +13,19 @@ forms.  With ``cfg.remat`` each remat unit runs under
 Mamba2 layers and the shared block) and each tail layer of the hybrid, as
 the reference's ``_maybe_remat`` sets them.
 
+With ``cfg.hybrid_layer_ids`` set the hybrid is Zamba2's published layout
+(arXiv:2411.15242; the port's own, the reference has none), trained only:
+every layer is a Mamba2 layer, and hybrid layer k (the k-th of those
+indices) first runs shared block ``k % n_mem_blocks`` over concat(x, e),
+e the embedding's output: RMSNorm over 2 d, attention of heads x hd = 2 d
+at softmax scale (hd / 2) ** -0.5 back to d, RMSNorm, an exact-GELU gated
+MLP whose gate/up product adds the layer's own low-rank adapter, no
+residual inside; then the layer's own d x d linear, whose output t joins
+the Mamba2 layer's input, x + mamba(norm(x + t)).  The tree: ``layers``
+(L, ...), ``hybrid`` {``adapter_a`` (H, d, r), ``adapter_b`` (H, r, 2 ff),
+``linear`` (H, d, d)} and ``blocks`` (n_mem_blocks, ...); each layer is
+one remat unit, and each block's gradient the sum over its uses.
+
 The cache: ``ssm`` {"S" (L, b, h, ds, p) f32, "conv" (L, b, W - 1, c) in
 the compute dtype} for the ssm family; for the hybrid ``groups`` with the
 same leaves stacked (G, g, ...), ``tail`` (T, ...), and one KV slot a group,
@@ -25,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from .attention import attn_decode, attn_forward, init_attn
+from ..spans import traced
 from .config import ModelConfig
 from .layers import (embed, gated_mlp, init_linear, init_mlp, init_norm,
                      remat as _remat, rms_norm, unembed)
@@ -57,6 +71,8 @@ def init_ssm_stack(gen, cfg: ModelConfig, device):
     if cfg.family == "ssm":
         p["layers"] = _blk(gen, cfg, dt, device, (cfg.n_layers,))
         return p
+    if cfg.published_hybrid:
+        return dict(p, **_init_published(gen, cfg, dt, device))
     groups, g, tail = _hybrid_split(cfg)
     p["groups"] = _blk(gen, cfg, dt, device, (groups, g))
     if tail:
@@ -70,6 +86,27 @@ def init_ssm_stack(gen, cfg: ModelConfig, device):
         "mlp": init_mlp(gen, d, cfg.d_ff, dt, device),
     }
     return p
+
+
+def _init_published(gen, cfg: ModelConfig, dt, device):
+    """The published hybrid layout's leaves (module docstring)."""
+    d, ff, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    H, nb = len(cfg.hybrid_layer_ids), cfg.n_mem_blocks
+    return {
+        "layers": _blk(gen, cfg, dt, device, (cfg.n_layers,)),
+        "hybrid": {
+            "adapter_a": init_linear(gen, (H, d, r), dt, device),
+            "adapter_b": init_linear(gen, (H, r, 2 * ff), dt, device),
+            "linear": init_linear(gen, (H, d, d), dt, device),
+        },
+        "blocks": {
+            "ln1": init_norm((nb, 2 * d), dt, device),
+            "attn": init_attn(gen, 2 * d, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                              dt, device, (nb,), d_out=d),
+            "ln2": init_norm((nb, d), dt, device),
+            "mlp": init_mlp(gen, d, ff, dt, device, (nb,)),
+        },
+    }
 
 
 # ----------------------------------------------------------------- forward
@@ -176,7 +213,65 @@ def _positions(x):
     return torch.arange(s, device=x.device).expand(b, s)
 
 
+@traced("hybrid.attn")
+def _shared_attn(cfg: ModelConfig, attn, h, positions):
+    """The published block's attention: 2 d in, d out, (hd / 2) ** -0.5."""
+    return attn_forward(attn, h, positions, impl=cfg.attn_impl,
+                        scale=(cfg.head_dim / 2) ** -0.5, **_attn_kwargs(cfg))
+
+
+@traced("hybrid.shared")
+def _shared_block(cfg: ModelConfig, blk, adapter, x, e, positions):
+    """A shared block of the published layout on layer input x and the
+    embedding's output e, with a hybrid layer's MLP ``adapter`` (A, B): no
+    residual inside (module docstring)."""
+    h = rms_norm(torch.cat([x, e], dim=-1), blk["ln1"], cfg.norm_eps)
+    h = rms_norm(_shared_attn(cfg, blk["attn"], h, positions), blk["ln2"],
+                 cfg.norm_eps)
+    return gated_mlp(h, blk["mlp"]["wi"], blk["mlp"]["wo"], cfg.act,
+                     adapter=adapter)
+
+
+def _hybrid_layer(cfg: ModelConfig, blk, hp, pl, x, e, positions):
+    """A hybrid layer of the published layout: the shared block through
+    the layer's linear joins the Mamba2 layer's input, not its residual."""
+    t = _shared_block(cfg, blk, (hp["adapter_a"], hp["adapter_b"]), x, e,
+                      positions) @ hp["linear"].to(x.dtype)
+    o, _ = mamba2_forward(pl["mamba"], cfg,
+                          rms_norm(x + t, pl["ln"], cfg.norm_eps))
+    return x + o
+
+
+def _published_logits(cfg: ModelConfig, params, batch):
+    e = embed(batch["tokens"], params["embed"], _dtype(cfg))
+    positions = _positions(e)
+    blocks = _unstack(params["blocks"])
+    hyb = {i: (k, hp) for k, (i, hp) in enumerate(
+        zip(cfg.hybrid_layer_ids, _unstack(params["hybrid"])))}
+    x = e
+    for i, pl in enumerate(_unstack(params["layers"])):
+        if i in hyb:
+            k, hp = hyb[i]
+            fn, args = _hybrid_layer, (blocks[k % cfg.n_mem_blocks], hp, pl,
+                                       x, e, positions)
+        else:
+            fn, args = _mamba_out, (pl, x)
+        x = (_remat(fn, cfg, *args, policy=cfg.remat_policy) if cfg.remat
+             else fn(cfg, *args))
+    return unembed(_head(cfg, params, x), params["embed"]), _zero_aux(x)
+
+
+def _no_serving(cfg: ModelConfig):
+    if cfg.published_hybrid:
+        raise NotImplementedError(
+            "the published Zamba2 hybrid layout (hybrid_layer_ids, "
+            "n_mem_blocks, adapter_rank) trains only; it has no prefill or "
+            "decode")
+
+
 def hybrid_logits(cfg: ModelConfig, params, batch):
+    if cfg.published_hybrid:
+        return _published_logits(cfg, params, batch)
     x = embed(batch["tokens"], params["embed"], _dtype(cfg))
     positions = _positions(x)
     for gp in _unstack(params["groups"]):
@@ -190,6 +285,7 @@ def hybrid_logits(cfg: ModelConfig, params, batch):
 
 
 def hybrid_prefill(cfg: ModelConfig, params, batch, cache_len: int):
+    _no_serving(cfg)
     x = embed(batch["tokens"], params["embed"], _dtype(cfg))
     s = x.shape[1]
     pad = cache_len - s
@@ -216,6 +312,7 @@ def hybrid_prefill(cfg: ModelConfig, params, batch, cache_len: int):
 
 
 def hybrid_decode(cfg: ModelConfig, params, cache, tokens, pos):
+    _no_serving(cfg)
     x = embed(tokens, params["embed"], _dtype(cfg))
     shared = params["shared"]
     for gi, gp in enumerate(_unstack(params["groups"])):

@@ -65,7 +65,7 @@ def prompt_zeros(cfg, batch: int, seq: int, device="cuda") -> dict:
 def _ssm_state_zeros(cfg, lead: tuple, batch: int, zeros) -> dict:
     """Stacked Mamba2 states: S (*lead, b, h, ds, p) f32 and the conv ring
     (*lead, b, W - 1, c) in the compute dtype."""
-    _, h, p, ds, conv_ch = _ssm_dims(cfg)
+    _, h, p, ds, conv_ch, _ = _ssm_dims(cfg)
     return {"S": zeros(*lead, batch, h, ds, p, dtype=torch.float32),
             "conv": zeros(*lead, batch, cfg.ssm_conv - 1, conv_ch)}
 

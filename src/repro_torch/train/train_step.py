@@ -218,7 +218,9 @@ def make_train_step(
 
     transport_hook: optional ``buf -> buf`` on the raw channel-major wire
     residues between encode and repair/all-reduce — the seam where wire
-    corruption is injected.
+    corruption is injected.  Without one (and without a mesh) the new
+    parameters and moments are views of the dead wire's memory
+    (``adamw_update(out=)``); the state passed in is never written to.
 
     mesh: optional ``DeviceMesh``; the parameters, moments and batch are
     then DTensors on it (module docstring), and the metrics come back as
@@ -300,7 +302,21 @@ def make_train_step(
                 k: v.full_tensor() if hasattr(v, "full_tensor") else v
                 for k, v in metrics.items()}
 
+    # the codec step's new state goes into its dead wire (``adamw_update``'s
+    # ``out``) when no mesh or hook is in the way (the step's end, below)
+    into_wire = (rns_codec is not None and mesh is None
+                 and transport_hook is None)
+
     def _step(params, opt_state, batch):
+        wire_out = None
+        if into_wire:
+            # the wire's block is the step's first allocation, made while
+            # the previous step's temporaries are all free: the block that
+            # held the state before the last, once its caller has let it go
+            leaves = _tree.flatten(params)[0]
+            wire_out = torch.empty(
+                (rns_codec.n_channels, sum(l.numel() for l in leaves)),
+                dtype=torch.int32, device=leaves[0].device)
         if mesh is not None and rns_codec is not None:
             loss, ce, aux, grads = local_grads(params, batch)
         else:
@@ -317,7 +333,7 @@ def make_train_step(
             # (layout BASE_MA/RRNS per the codec) from encode through
             # repair, the all-reduce and the optimizer-boundary decode
             with span("codec.pack"):
-                wire, meta = tree_pack_rns(rns_codec, grads)
+                wire, meta = tree_pack_rns(rns_codec, grads, out=wire_out)
             del grads
             if transport_hook is not None:  # fault-injection seam (raw)
                 wire = dataclasses.replace(
@@ -331,13 +347,23 @@ def make_train_step(
             with span("codec.wire"):
                 psum(wire.residues, group)   # the ONLY gradient collective
             world = float(dist.get_world_size(group))
-            decode = lambda s: tree_decode(rns_codec, s, meta, denom=world)
+            # once decoded the wire is dead: without a hook that could keep
+            # it, the new parameters and moments go into its block, so the
+            # steps take the same two wire-sized blocks in turn; otherwise
+            # the decode empties the box, and a wire that nothing else holds
+            # is freed before the update makes the new state
+            kw = {"out": wire.residues} if into_wire else {}
+            box = [wire]
+            del wire
+            decode = lambda b: tree_decode(rns_codec, b.pop(), meta,
+                                           denom=world)
             if mesh is not None:   # local shards back under their placements
-                decode = lambda s, d=decode: _tree.tree_map(_like, d(s),
+                decode = lambda b, d=decode: _tree.tree_map(_like, d(b),
                                                             params)
             with span("optim.adamw"):
                 params, opt_state, gnorm = update(
-                    opt_cfg, params, wire, opt_state, grad_decode=decode)
+                    opt_cfg, params, box, opt_state, grad_decode=decode,
+                    **kw)
             loss, ce, aux = psum(torch.stack([loss, ce, aux]), group) / world
         # the optimizer's post-update step counter rides along so drivers
         # can check a resume against the loop's own step

@@ -455,6 +455,22 @@ def test_tree_pack_layout_and_roundtrip_match_reference(name):
     eq(arr.residues, np.asarray(buf_r))
 
 
+@pytest.mark.parametrize("make", [dict(world=8), dict(world=8, correct=True),
+                                  dict(world=2, n=4)])   # n=4: the f64 path
+def test_tree_pack_into_a_given_wire(make):
+    """``tree_pack_rns(out=)`` writes the same residues as a fresh pack
+    into the given buffer; ``out=`` takes the channel-major layout only."""
+    tc = GradCodec.make(**make)
+    tree = to_torch(unsorted_tree(np.random.default_rng(1)))
+    fresh, _ = tree_pack_rns(tc, tree)
+    out = torch.full(tuple(fresh.residues.shape), -1, dtype=torch.int32)
+    got, _ = tree_pack_rns(tc, tree, out=out)
+    assert got.residues.data_ptr() == out.data_ptr()
+    eq(got.residues, fresh.residues.numpy())
+    with pytest.raises(ValueError, match="channel-major"):
+        tc.encode_packed(torch.ones(6), out=out)
+
+
 def test_tree_pack_rejects_empty_tree():
     with pytest.raises(ValueError, match="empty"):
         tree_pack(GradCodec.make(world=2), {"a": None, "b": []})
@@ -606,6 +622,66 @@ def test_adamw_master_copy_and_bf16_params():
         torch.float32
     with pytest.raises(ValueError, match="structure"):
         adamw_update(AdamWConfig(), p, {"w": [torch.ones(4)]}, st)
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """The non-view aten ops a block runs, by name (``mul`` for ``mul``,
+    ``mul_`` and ``mul.out`` alike, ``copy`` for ``copy_`` and a cast's
+    ``_to_copy``: one kernel each on the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            name = func.overloadpacket.__name__.strip("_")
+            self.names.append("copy" if name == "to_copy" else name)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype,master", [
+    (torch.float32, False), (torch.bfloat16, True),
+    (torch.bfloat16, False), (torch.float32, True)])
+def test_adamw_into_a_dead_buffer(dtype, master):
+    """``adamw_update(out=buf)``: the new parameters, masters and moments
+    are views of ``buf``'s bytes, equal bit for bit to the fresh tensors of
+    the same update from the same ops, and the inputs are not written to;
+    a buffer too small for them gives fresh tensors."""
+    g = torch.Generator().manual_seed(5)
+    shapes = {"a": (3, 5), "b": (7,), "c": ()}
+    p = {k: torch.randn(s, generator=g).to(dtype) for k, s in shapes.items()}
+    st = adamw_init(p, master=master)
+    st["m"] = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    st["v"] = {k: torch.rand(s, generator=g) for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    cfg = AdamWConfig(warmup=2)
+    keep = [t.clone() for t in (*p.values(), *st["m"].values(),
+                                *st["v"].values())]
+    with _Ops() as fresh_ops:
+        want = adamw_update(cfg, p, grads, st)
+    buf = torch.full((4, 1024), -1, dtype=torch.int32)
+    with _Ops() as out_ops:
+        got = adamw_update(cfg, p, grads, st, out=buf)
+    assert sorted(out_ops.names) == sorted(fresh_ops.names)
+    ptr = buf.untyped_storage().data_ptr()
+    trees = lambda r: [r[0], r[1]["m"], r[1]["v"]] + (
+        [r[1]["master"]] if master else [])
+    for tree_got, tree_want in zip(trees(got), trees(want)):
+        for k in shapes:
+            assert tree_got[k].untyped_storage().data_ptr() == ptr
+            assert tree_got[k].dtype == tree_want[k].dtype
+            assert tree_got[k].shape == tree_want[k].shape
+            assert torch.equal(tree_got[k], tree_want[k]), k
+    assert torch.equal(got[2], want[2])
+    for t, old in zip((*p.values(), *st["m"].values(), *st["v"].values()),
+                      keep):
+        assert torch.equal(t, old)
+    small = adamw_update(cfg, p, grads, st,
+                         out=torch.zeros(16, dtype=torch.int32))
+    for k in shapes:
+        assert small[0][k].untyped_storage().data_ptr() != ptr
+        assert torch.equal(small[0][k], want[0][k])
 
 
 # ------------------------------------------------------------- doctests

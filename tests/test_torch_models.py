@@ -53,6 +53,7 @@ from repro_torch.models import (
 )
 from repro_torch.models import layers as T
 from repro_torch.models.attention import attention
+from repro_torch.models.config import PORT_FIELDS
 from repro_torch.train.data import SyntheticLM
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,9 +91,17 @@ def J(a, dtype=None):
 # ----------------------------------------------------------------- configs
 @pytest.mark.parametrize("name", ARCH_IDS)
 def test_configs_and_smoke_equal_reference(name):
+    """Every field of the reference's config, of the arch and of its
+    smoke(), equal; the port's own fields (``PORT_FIELDS``) are no others
+    and stand at their defaults, which run the reference's model."""
     rc, tc = rconfigs.get_config(name), configs.get_config(name)
-    assert dataclasses.asdict(tc) == dataclasses.asdict(rc)
-    assert dataclasses.asdict(tc.smoke()) == dataclasses.asdict(rc.smoke())
+    defaults = {f.name: f.default for f in dataclasses.fields(tc)
+                if f.name in PORT_FIELDS}
+    for t, r in ((tc, rc), (tc.smoke(), rc.smoke())):
+        got, want = dataclasses.asdict(t), dataclasses.asdict(r)
+        assert set(got) - set(want) == set(PORT_FIELDS)
+        assert {k: got[k] for k in want} == want
+        assert {k: got[k] for k in PORT_FIELDS} == defaults
     assert configs.shape_cells(tc) == rconfigs.shape_cells(rc)
     for prop in ("d_inner", "ssm_heads", "q_per_kv"):
         assert getattr(tc, prop) == getattr(rc, prop)

@@ -195,6 +195,38 @@ def test_microbatches_equal_one_batch():
         make_train_step(tc, opt, microbatches=3)(tp, adamw_init(tp), tb)
 
 
+def test_the_codec_step_writes_its_new_state_into_the_dead_wire(gloo1):
+    """Without a transport hook the codec step's new parameters and moments
+    are views of the decoded wire's one block; with an identity hook (which
+    could keep the wire) they are fresh tensors.  The two runs are equal
+    bit for bit, and the state passed in is never written to."""
+    _, tc, _, tp, loader = start("gemma-2b")
+    opt, codec = AdamWConfig(**OPT), GradCodec.make(world=2)
+    into_wire = make_train_step(tc, opt, rns_codec=codec, group=gloo1)
+    fresh = make_train_step(tc, opt, rns_codec=codec, group=gloo1,
+                            transport_hook=lambda buf: buf)
+    st0 = adamw_init(tp)
+    p0, m0 = named(tp), named(st0["m"])
+    a = b = (tp, st0)
+    for step in range(2):
+        _, tb = batch_at(loader, step)
+        a, b = into_wire(*a[:2], tb), fresh(*b[:2], tb)
+        blocks = lambda *trees: [l.untyped_storage().data_ptr()
+                                 for t in trees for _, l in flatten_named(t)]
+        assert len(set(blocks(a[0], a[1]["m"], a[1]["v"]))) == 1
+        assert len(set(blocks(b[0]))) == len(blocks(b[0]))
+        for k in ("loss", "gnorm"):
+            assert float(a[2][k]) == float(b[2][k])
+    for got, want in ((a[0], b[0]), (a[1]["m"], b[1]["m"]),
+                      (a[1]["v"], b[1]["v"])):
+        got, want = named(got), named(want)
+        for n in want:
+            np.testing.assert_array_equal(got[n], want[n], err_msg=n)
+    for got, want in ((tp, p0), (st0["m"], m0)):
+        for n, leaf in named(got).items():
+            np.testing.assert_array_equal(leaf, want[n], err_msg=n)
+
+
 def test_repair_needs_a_correct_codec():
     with pytest.raises(ValueError, match="locate-and-correct"):
         make_train_step(get_config("gemma-2b").smoke(), AdamWConfig(),
