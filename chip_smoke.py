@@ -306,7 +306,12 @@ prints one JSON object per line:
                training run's (5, 999,812,736) wire, first held against its
                plain version bit for bit (fixed wire, verdicts, counts) with
                4,096 single- and 512 two-channel faults planted, then timed
-               with one fault a call, its bound the wire's bytes.  To time
+               with one fault a call, its bound the wire's bytes; the SSD
+               kernels (``ssd_row``) at one layer of each benchmark cell's
+               shape (SSD_SHAPES), held against their plain mirrors, then
+               the forward and the forward and backward beside the plain
+               version (``models.ssm.ssd_plain``), bounds by f32 FLOPs at
+               67 TFLOP/s and by bytes.  To time
                a parent commit beside
                this tree, run both trees' chip_smoke.py in one call to the
                card (parent, change, change, parent) and read the rows;
@@ -324,7 +329,10 @@ prints one JSON object per line:
                17,657 launches run (the divmods' and the canonicalisations'
                shape), the codec's and the repair's on the gemma3-1b
                buffer (the repair kernel has no counterpart in the
-               reference: ``replaces`` null), the Montgomery
+               reference: ``replaces`` null), the SSD kernels' forward at
+               the mamba2_370m layer (``replaces`` null too; their
+               launches are the ssm and hybrid training runs'), the
+               Montgomery
                kernels at the 8,192-column timing shape (the lane runs the
                ladder on 1,024 columns and its products on one; those rows
                are in phase 7).
@@ -360,6 +368,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores (data sheet)
 # H100 SXM dense int8 tensor-core rate (data sheet), operations per second:
 # the Montgomery kernels' base-extension dots run as u8 products there.
 INT8_TENSOR_OPS_PER_S = 1.979e15
@@ -410,6 +419,10 @@ REPLICA_LEAF = "layers/attn/wq"    # 30,670,848 elements
 CLIP_STRIDE = 1_000_003            # every such element is scaled past the clip
 CHUNK = 1 << 26                    # elements per plain-version comparison
 RRNS_FAULTS = 4096                 # single-channel faults on the timed wire
+# One layer's SSD core in each benchmark cell (portbench): b, s, h, p, G, ds,
+# chunk.
+SSD_SHAPES = {"mamba2_370m": (8, 2048, 32, 64, 1, 128, 256),
+              "zamba2_7b": (2, 4096, 112, 64, 2, 64, 256)}
 DIST_BACKEND = "nccl"
 
 # Slice 4, the training path: gemma3-1b at full width through the port's
@@ -968,7 +981,8 @@ def launch_counts(ops) -> dict:
             "codec_decode": ops.codec_decode_op.launches,
             "rrns_repair": ops.rrns_repair_op.launches,
             "mont_mul": ops.mont_mul_op.launches,
-            "mont_ladder": ops.mont_ladder_op.launches}
+            "mont_ladder": ops.mont_ladder_op.launches,
+            "ssd": ops.ssd_op.launches}
 
 
 def implied(**nonzero) -> dict:
@@ -976,7 +990,24 @@ def implied(**nonzero) -> dict:
     return {k: nonzero.get(k, 0) for k in ("mrc", "modmul", "compare",
                                            "codec_encode", "codec_decode",
                                            "rrns_repair", "mont_mul",
-                                           "mont_ladder")}
+                                           "mont_ladder", "ssd")}
+
+
+def ssd_launches(args, layers=None) -> int:
+    """The SSD kernels' launches in one step of the training CLI on
+    ``args`` (the model cut to ``layers`` layers when given): each Mamba2
+    layer's forward, again in its remat recompute, and its backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd
+
+    cfg = get_config(args[args.index("--arch") + 1])
+    if "--no-smoke" not in args:
+        cfg = cfg.smoke()
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    per_layer = (ssd.FORWARD_LAUNCHES * (2 if cfg.remat else 1)
+                 + ssd.BACKWARD_LAUNCHES)
+    return (layers or cfg.n_layers) * per_layer
 
 
 def codec_tables(codec):
@@ -1390,6 +1421,109 @@ def rrns_repair_row(dev, flat, max_err, card) -> dict:
 
 
 # ---------------------------------------------- slice 4: the training path
+def ssd_work(b, s, h, p, G, ds, Q) -> tuple:
+    """(forward FLOPs, backward FLOPs, forward bytes, forward + backward
+    bytes) of one SSD call: the products the algorithm needs, the weight
+    below the diagonal only (Q (Q + 1) / 2 pairs a chunk), each input and
+    output of the function read or written once."""
+    nc, tri = s // Q, Q * (Q + 1) // 2
+    heads, groups = b * nc * h, b * nc * G
+    state = 2 * heads * Q * ds * p              # one (Q, ds) x (ds, p) product
+    weight = 2 * heads * tri * p                # the weight times x, or its kin
+    cb = 2 * groups * tri * ds                  # C B^T, or dCB with B or C
+    fwd = cb + weight + 2 * state               # C B^T, W x, S_c, C S
+    bwd = 4 * state + 2 * weight + 2 * cb       # dS, B dS_c, dC, dB; dM, W^T dy
+    xs, bc, st = 4 * b * s * h * p, 4 * b * s * G * ds, 4 * b * h * ds * p
+    dt = 4 * b * s * h
+    fwd_bytes = 2 * xs + dt + 2 * bc + st       # x, dt, B, C in; y, state out
+    return fwd, bwd, fwd_bytes, fwd_bytes + 2 * xs + dt + 2 * bc + st
+
+
+def ssd_row(dev, label, max_err, card) -> dict:
+    """The SSD kernels (``ops.ssd_op``) at one SSD_SHAPES layer, from a
+    given initial state with a given final state's gradient: y, the final
+    state and every gradient against the plain mirrors
+    (``kernels/ssd.py``), relative Frobenius error at most 1e-5; then the
+    forward's time (no gradient) and the forward and backward's, beside
+    the plain version's (``models.ssm.ssd_plain`` and its autograd) and the
+    bounds: the FLOPs ``ssd_work`` counts at F32_FLOPS_PER_S, the bytes at
+    HBM_BYTES_PER_S."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as K
+    from repro_torch.models import ssm
+
+    free_card()
+    b, s, h, p, G, ds, Q = SSD_SHAPES[label]
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn(b, s, h, p, device=dev, generator=gen)
+    dt = 0.01 + 0.1 * torch.rand(b, s, h, device=dev, generator=gen)
+    A = -(0.5 + torch.rand(h, device=dev, generator=gen))
+    B, C = (0.3 * torch.randn(b, s, G, ds, device=dev, generator=gen)
+            for _ in range(2))
+    S0 = torch.randn(b, h, ds, p, device=dev, generator=gen)
+    dy = torch.randn(b, s, h, p, device=dev, generator=gen)
+    dF = torch.randn(b, h, ds, p, device=dev, generator=gen)
+    ins = (x, dt, A, B, C, S0)
+    leaves = [t.clone().requires_grad_() for t in ins]
+
+    def grads(fn):
+        y, final = fn(*leaves[:5], Q, leaves[5])
+        return (y, final, *torch.autograd.grad(
+            (y * dy).sum() + (final * dF).sum(), leaves))
+
+    ops.reset_launches()
+    got = grads(ops.ssd_op)
+    require(ops.reset_launches()["ssd_op"]
+            == K.FORWARD_LAUNCHES + K.BACKWARD_LAUNCHES,
+            f"ssd at {label}: launches a call")
+    with torch.no_grad():
+        y, final, (cum, S, CB) = K.ssd_forward_plain(*ins[:5], Q, S0)
+        want = (y, final, *K.ssd_backward_plain(*ins[:5], cum, S, CB, dy, dF,
+                                               want_initial=True))
+        errs = {name: float((g - w).norm() / w.norm())
+                for name, g, w in zip(("y", "final", "dx", "ddt", "dA", "dB",
+                                       "dC", "dinit"), got, want)}
+    del got, want, y, final, cum, S, CB
+    max_err["ssd"] = max(max_err["ssd"], *errs.values())
+    require(max(errs.values()) <= 1e-5, f"ssd at {label}: errors {errs}")
+
+    def forward(fn):
+        with torch.no_grad():
+            fn(*ins[:5], Q, S0)
+
+    ms = median_ms(lambda: forward(ops.ssd_op), runs=10)
+    fb_ms = median_ms(lambda: grads(ops.ssd_op), runs=10)
+    plain_ms = median_ms(lambda: forward(ssm.ssd_plain), runs=5, warmup=1)
+    plain_fb_ms = median_ms(lambda: grads(ssm.ssd_plain), runs=5, warmup=1)
+    fwd, bwd, fwd_bytes, fb_bytes = ssd_work(b, s, h, p, G, ds, Q)
+    bounds = {"forward_flops_ms": 1e3 * fwd / F32_FLOPS_PER_S,
+              "forward_bytes_ms": 1e3 * fwd_bytes / HBM_BYTES_PER_S,
+              "fwd_bwd_flops_ms": 1e3 * (fwd + bwd) / F32_FLOPS_PER_S,
+              "fwd_bwd_bytes_ms": 1e3 * fb_bytes / HBM_BYTES_PER_S}
+    bound_ms = max(bounds["forward_flops_ms"], bounds["forward_bytes_ms"])
+    row = {"phase": "timing", "kernel": "ssd", "shape": label,
+           "dims": dict(zip("b s h p G ds chunk".split(),
+                            SSD_SHAPES[label])),
+           "ms": ms, "fwd_bwd_ms": fb_ms, "bwd_ms": fb_ms - ms,
+           "plain_ms": plain_ms, "plain_fwd_bwd_ms": plain_fb_ms,
+           "plain_bwd_ms": plain_fb_ms - plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": ("operations" if bounds["forward_flops_ms"]
+                        >= bounds["forward_bytes_ms"] else "bytes"),
+           "bound_share": bound_ms / ms,
+           "fwd_bwd_bound_share": max(bounds["fwd_bwd_flops_ms"],
+                                      bounds["fwd_bwd_bytes_ms"]) / fb_ms,
+           **bounds, "flops": {"forward": fwd, "backward": bwd},
+           "errors": errs,
+           "launches_per_call": {"forward": K.FORWARD_LAUNCHES,
+                                 "backward": K.BACKWARD_LAUNCHES},
+           "card": card}
+    emit(row)
+    return row
+
+
 def check_train_encode(codec, grads, wire, max_err) -> int:
     """A training step's wire buffer (the codec_encode kernel's output on
     the step's real gradients) against the plain encode of those gradients,
@@ -1587,9 +1721,10 @@ def train_run(dev, max_err, label, flags=(), check=None, args=TRAIN_ARGS,
     steps = probe.report()
     channels = (5 if "--rns-correct" in flags
                 else 4 if "--rns-allreduce" in flags else 0)
+    ssd = ssd_launches(args, layers)
     want = (implied(codec_encode=1, codec_decode=1,
-                    rrns_repair=int(channels == 5)) if channels
-            else implied())
+                    rrns_repair=int(channels == 5), ssd=ssd) if channels
+            else implied(ssd=ssd))
     total = Counter()
     for i, s in enumerate(steps):
         require(s["launches"] == want,
@@ -4214,7 +4349,7 @@ def main() -> int:
 
     max_err = {"mrc": 0, "modmul": 0, "compare": 0, "codec_encode": 0,
                "codec_decode": 0.0, "rrns_repair": 0, "mont_mul": 0,
-               "mont_ladder": 0}
+               "mont_ladder": 0, "ssd": 0.0}
 
     def hold(name, got, want, where):
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -4746,6 +4881,11 @@ def main() -> int:
         dev, flat, max_err, card)
     del flat
 
+    # the SSD core at the benchmark cells' layer shapes (not on a cell's
+    # path: one layer's call, forward and forward + backward)
+    for label in SSD_SHAPES:
+        timings[("ssd", label)] = ssd_row(dev, label, max_err, card)
+
     # the Montgomery kernels at RSA-2048 width on CRYPTO_TIMING_BATCH and
     # on CRYPTO_SLOTS columns: 512 distinct columns tiled (the kernels run
     # in constant time, whatever the data), each output held against the
@@ -4853,7 +4993,8 @@ def main() -> int:
                 "codec_decode": "src/repro/kernels/codec_decode.py:93",
                 "rrns_repair": None,
                 "mont_mul": "src/repro/kernels/mont_ladder.py:125",
-                "mont_ladder": "src/repro/kernels/mont_ladder.py:149"}
+                "mont_ladder": "src/repro/kernels/mont_ladder.py:149",
+                "ssd": None}
     sources = {"mrc": "src/repro_torch/kernels/csrc/mrc.cu",
                "modmul": "src/repro_torch/kernels/csrc/modmul.cu",
                "compare": "src/repro_torch/kernels/csrc/rns_compare.cu",
@@ -4861,14 +5002,15 @@ def main() -> int:
                "codec_decode": "src/repro_torch/kernels/csrc/codec_decode.cu",
                "rrns_repair": "src/repro_torch/kernels/csrc/rrns_repair.cu",
                "mont_mul": "src/repro_torch/kernels/csrc/mont_ladder.cu",
-               "mont_ladder": "src/repro_torch/kernels/csrc/mont_ladder.cu"}
+               "mont_ladder": "src/repro_torch/kernels/csrc/mont_ladder.cu",
+               "ssd": "src/repro_torch/kernels/csrc/ssd.cu"}
     # compare at the one-column shape of the divmods and the lane's
     # canonicalisations: 17,588 of its 17,657 launches
     shape_of = {"mrc": "paper_n137", "modmul": "paper_n137",
                 "compare": DIVMOD_SHAPE, "codec_encode": MODEL_NAME,
                 "codec_decode": MODEL_NAME, "rrns_repair": MODEL_NAME,
                 "mont_mul": CRYPTO_SHAPE,
-                "mont_ladder": CRYPTO_SHAPE}
+                "mont_ladder": CRYPTO_SHAPE, "ssd": "mamba2_370m"}
     rows = []
     for name in replaces:
         t = timings[(name, shape_of[name])]

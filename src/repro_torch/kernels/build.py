@@ -31,7 +31,7 @@ __all__ = ["build", "load", "check", "pointers", "view_args", "operands",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _SOURCES = ("mrc.cu", "modmul.cu", "rns_compare.cu", "codec_encode.cu",
-            "codec_decode.cu", "mont_ladder.cu", "rrns_repair.cu")
+            "codec_decode.cu", "mont_ladder.cu", "rrns_repair.cu", "ssd.cu")
 # sm_90a (Hopper); IEEE division and no FMA contraction of the Barrett
 # product are the defaults — never add --use_fast_math (see common.cuh).
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -62,6 +62,13 @@ _SIGNATURES = {
     # image, host layout (rrns_repair.repair_layout), warps, blocks, B,
     # stream
     "rns_rrns_repair": [_P, _L, _L, _P, _P, _P, _P, _I, _L, _L, _P],
+    # x, dt, A, B, C, initial state (or NULL), y, final state, cum, S, CB,
+    # yoff (or NULL), b, s, h, p, G, ds, Q, stream
+    "ssd_forward": [_P] * 12 + [_I] * 7 + [_P],
+    # x, dt, A, B, C, dy, dfinal (or NULL), cum, S, CB, yoff, the scratch
+    # dS, dCB, rowpart, colpart, off, dw, dtpart, dApart, then dx, ddt, dB,
+    # dC, dinit (or NULL), b, s, h, p, G, ds, Q, stream
+    "ssd_backward": [_P] * 24 + [_I] * 7 + [_P],
 }
 
 

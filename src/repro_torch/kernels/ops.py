@@ -1,7 +1,8 @@
 """Public wrappers for the RNS kernels: ``mrc_op``, ``modmul_op``,
 ``compare_op``, the gradient codec's ``codec_encode_op``,
-``codec_decode_op`` and ``rrns_repair_op``, and the dual-base Montgomery
-``mont_mul_op`` and ``mont_ladder_op``.
+``codec_decode_op`` and ``rrns_repair_op``, the dual-base Montgomery
+``mont_mul_op`` and ``mont_ladder_op``, and the SSD core of the Mamba2
+models, ``ssd_op`` (f32, differentiable: ``kernels/ssd.py``).
 
 They present the same channels-last ``(..., n)`` API as ``repro_torch.core``
 and handle:
@@ -43,10 +44,11 @@ from .mrc import column_image, mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
 from .rrns_repair import (repair_image, rrns_repair_kernel_call,
                           rrns_repair_plain)
+from .ssd import SSDFunction, check_operands, dense
 
 __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
            "codec_decode_op", "rrns_repair_op", "mont_mul_op",
-           "mont_ladder_op", "mont_ladder_steps_op", "reset_launches"]
+           "mont_ladder_op", "mont_ladder_steps_op", "ssd_op", "reset_launches"]
 
 
 def _on_card(t) -> bool:
@@ -445,11 +447,33 @@ def mont_ladder_steps_op(r0, r1, bits, neg, n_hi):
             _mont_wrap(r0, r1lo, r1hi, lead))
 
 
+# ------------------------------------------------------------ SSD core
+def ssd_op(x, dt, A, B, C, chunk: int, initial_state=None):
+    """The chunked SSD scan, ``models/ssm.py::ssd``'s contract: (y (b, s,
+    h, p) without the D skip, the final state (b, h, ds, p)), with its
+    gradients.  A CUDA tensor runs the kernels (``kernels/ssd.py``; f32
+    operands, or it raises), 4 launches forward and 6 backward, counted
+    here; a CPU tensor the plain version, ``models/ssm.py::ssd_plain``."""
+    if not _on_card(x):
+        from ..models.ssm import ssd_plain   # the models import this module
+        return ssd_plain(x, dt, A, B, C, chunk, initial_state)
+    if B.dim() == 3:                      # one group, without its axis
+        B, C = B[:, :, None], C[:, :, None]
+    check_operands(x, dt, A, B, C, chunk, initial_state)
+    return SSDFunction.apply(*(dense(t) for t in (x, dt, A, B, C)),
+                             dense(initial_state), int(chunk), _count_ssd)
+
+
+def _count_ssd(n: int) -> None:
+    ssd_op.launches += n
+
+
 def reset_launches() -> dict:
     """Zero every wrapper's launch count; returns the counts it cleared."""
     counts = {}
     for op in (mrc_op, modmul_op, compare_op, codec_encode_op,
-               codec_decode_op, rrns_repair_op, mont_mul_op, mont_ladder_op):
+               codec_decode_op, rrns_repair_op, mont_mul_op, mont_ladder_op,
+               ssd_op):
         counts[op.__name__] = op.launches
         op.launches = 0
     return counts
@@ -463,3 +487,4 @@ codec_decode_op.launches = 0
 rrns_repair_op.launches = 0
 mont_mul_op.launches = 0
 mont_ladder_op.launches = 0
+ssd_op.launches = 0

@@ -9,10 +9,13 @@ of the depthwise conv's last W - 1 inputs.
 
 The dtypes are the reference's: the projections and the conv run in the
 compute dtype, and so does the conv ring; x, B, C, dt and the state S are
-f32 (the SSD core, ``ssd``, runs in the dtype it is given).  The reference
-has no Pallas kernel here; its four-operand einsums are written out as
-batched matmuls over (batch, chunk, head) with the order of the products
-fixed, so that no (b, c, q, k, h, p) tensor is ever formed.
+f32 (the SSD core, ``ssd``, runs in the dtype it is given on the CPU, in
+f32 on the card).  The reference has no Pallas kernel here; its
+four-operand einsums are written out as batched matmuls over (batch,
+chunk, head) with the order of the products fixed, so that no (b, c, q, k,
+h, p) tensor is ever formed.  On the card ``ssd`` runs the port's own CUDA
+kernels, forward and backward (``kernels.ops.ssd_op``): no (b, c, h, Q, Q)
+weight in device memory, and one kernel for the scan between chunks.
 
 One departure, in the backward pass only: the reference builds the decay
 mask as ``where(tri, exp(rel), 0)``.  Above the diagonal ``rel`` is
@@ -28,8 +31,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..dist.act_sharding import constrain
+from ..kernels.ops import ssd_op
 from ..spans import traced
 from .layers import init_linear, init_norm, on_shards, rms_norm, split_on
 
@@ -143,17 +148,25 @@ def _decay_mask(cum):
 
 @traced("ssm.ssd")
 def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
-    """The chunked SSD scan in the dtype of its inputs.
+    """The chunked SSD scan.
 
     x: (b, s, h, p), dt: (b, s, h), A: (h,), B, C: (b, s, ds) (one
     group) or (b, s, G, ds) (G groups, group g read by heads g h/G ..
-    (g + 1) h/G - 1, by a broadcast view); ``chunk`` divides s;
-    ``initial_state`` (b, h, ds, p) or None for zeros.  Returns (y (b, s,
-    h, p) without the D skip, the final state (b, h, ds, p)).  Each chunk
-    state is kept as (b G, ds, h/G, p), the layout the off-diagonal product
-    reads.  One group runs as a group axis of size one, folded into the
-    batch where the chunk states are stacked: the same products and
-    kernels as a call without the axis."""
+    (g + 1) h/G - 1); ``chunk`` divides s; ``initial_state`` (b, h, ds, p)
+    or None for zeros.  Returns (y (b, s, h, p) without the D skip, the
+    final state (b, h, ds, p)).  ``kernels.ops.ssd_op`` runs it: a CUDA
+    tensor takes the kernels (f32, or it raises), a CPU one ``ssd_plain``
+    in the dtype of its inputs."""
+    return ssd_op(x, dt, A, B, C, chunk, initial_state)
+
+
+def ssd_plain(x, dt, A, B, C, chunk: int, initial_state=None):
+    """``ssd`` in plain torch: the body a CPU tensor runs.  B
+    and C of G groups are read by a broadcast view.  Each chunk state is
+    kept as (b G, ds, h/G, p), the layout the off-diagonal product reads.
+    One group runs as a group axis of size one, folded into the batch
+    where the chunk states are stacked: the same products and kernels as
+    a call without the axis."""
     b, s, h, p = x.shape
     if B.ndim == 3:
         B, C = B[:, :, None], C[:, :, None]
@@ -203,17 +216,18 @@ def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
 
 
 def _ssd_on_mesh(x, dt, A, B, C, D, chunk, initial_state):
-    """``ssd`` of a heads-split x, its D skip and its flattening to (b, s,
-    h*p), on each device's shard under ``local_map``: torch 2.11's DTensor
-    refuses the batched products' flattening of (b, c, h) and the
-    output's of (h, p) when the heads are split.  The batch and heads
-    splits of x are kept and any other placement replicated (the sequence
-    whole, for the scan between chunks); dt, A, D and a given state follow
-    them, B and C the batch only.  Each shard runs the plain path on its
-    (row, head) blocks; the gradients of B and C (over the heads' split)
-    and of A and D (over the batch's) are partial sums on each shard,
-    summed (``on_shards``).  Returns (y (b, s, h*p), the final state
-    (b, h, ds, p))."""
+    """``ssd`` of a DTensor x, its D skip and its flattening to (b, s,
+    h*p), on each device's shard under ``local_map``: the kernels take
+    plain tensors, and torch 2.11's DTensor refuses the plain version's
+    flattening of (b, c, h) and the output's of (h, p) when the heads are
+    split.  The batch
+    and heads splits of x are kept and any other placement replicated (the
+    sequence whole, for the scan between chunks); dt, A, D and a given
+    state follow them, B and C the batch only.  Each shard runs ``ssd`` on
+    its (row, head) blocks; the gradients of B and C (over the heads'
+    split) and of A and D (over the batch's) are partial sums on each
+    shard, summed (``on_shards``).  Returns (y (b, s, h*p), the final
+    state (b, h, ds, p))."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = x.device_mesh
@@ -268,8 +282,8 @@ def mamba2_forward(params, cfg, u, *, initial_state=None):
     B, C = B.to(f32), C.to(f32)
     if G > 1:                                            # (b, s, G, ds)
         B, C = B.unflatten(-1, (G, ds)), C.unflatten(-1, (G, ds))
-    if split_on(x, 2):
-        if G > 1:
+    if isinstance(x, DTensor):
+        if G > 1 and split_on(x, 2):
             raise ValueError(f"ssm_groups={G}: the SSD on a mesh splits "
                              "heads, which groups of B and C do not follow")
         y, S_last = _ssd_on_mesh(x, dt, A, B, C, params["D"], Q,

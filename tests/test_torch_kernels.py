@@ -256,7 +256,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert ops.reset_launches() == {"mrc_op": 0, "modmul_op": 0, "compare_op": 0,
                                     "codec_encode_op": 0, "codec_decode_op": 0,
                                     "rrns_repair_op": 0, "mont_mul_op": 0,
-                                    "mont_ladder_op": 0}
+                                    "mont_ladder_op": 0, "ssd_op": 0}
 
 
 def test_kernel_calls_reject_host_tensors():
