@@ -310,7 +310,7 @@ prints one JSON object per line:
                kernels (``ssd_row``) at one layer of each benchmark cell's
                shape (SSD_SHAPES), held against their plain mirrors, then
                the forward and the forward and backward beside the plain
-               version (``models.ssm.ssd_plain``), bounds by f32 FLOPs at
+               version (``kernels.ssd.ssd_plain``), bounds by f32 FLOPs at
                67 TFLOP/s and by bytes.  To time
                a parent commit beside
                this tree, run both trees' chip_smoke.py in one call to the
@@ -1321,7 +1321,7 @@ def rrns_repair_row(dev, flat, max_err, card) -> dict:
     ``flat`` encoded by the one-rank ``--rns-correct`` codec into its
     (5, B) channel-major wire, RRNS_FAULTS seeded single-channel faults and
     RRNS_FAULTS // 8 two-channel ones planted; ``rrns_repair_op`` held
-    against ``rrns_repair_plain`` (CHUNK columns at a time) bit for bit:
+    against ``rrns_repair_plain`` (which makes its own passes) bit for bit:
     the fixed wire, the verdicts and the counts, which must name every
     planted fault.  Then its time on the wire with one fault planted again
     before each call, as the benchmark's RRNS cell plants one a step, and
@@ -1364,13 +1364,7 @@ def rrns_repair_row(dev, flat, max_err, card) -> dict:
     counts, verdict = ops.rrns_repair_op(codec, got, verdict=True)
     require(ops.reset_launches()["rrns_repair_op"] == 1,
             "rrns_repair: one launch a call")
-    want_counts, want_verdict = torch.zeros(3, dtype=torch.int64,
-                                            device=dev), []
-    for a in range(0, B, CHUNK):
-        c, v = rrns_repair_plain(codec, wire[:, a : a + CHUNK], verdict=True)
-        want_counts += c
-        want_verdict.append(v)
-    want_verdict = torch.cat(want_verdict)
+    want_counts, want_verdict = rrns_repair_plain(codec, wire, verdict=True)
     err = max(int((got[:, a : a + CHUNK].to(torch.int64)
                    - wire[:, a : a + CHUNK]).abs().max())
               for a in range(0, B, CHUNK))
@@ -1400,8 +1394,7 @@ def rrns_repair_row(dev, flat, max_err, card) -> dict:
 
     def plain():
         wire[c0, b0] = bad
-        for a in range(0, B, CHUNK):
-            rrns_repair_plain(codec, wire[:, a : a + CHUNK])
+        rrns_repair_plain(codec, wire)
 
     ms = median_ms(kern)
     require(kern()[0].tolist() == [1, 0, 1] and torch.equal(
@@ -1445,14 +1438,13 @@ def ssd_row(dev, label, max_err, card) -> dict:
     state and every gradient against the plain mirrors
     (``kernels/ssd.py``), relative Frobenius error at most 1e-5; then the
     forward's time (no gradient) and the forward and backward's, beside
-    the plain version's (``models.ssm.ssd_plain`` and its autograd) and the
+    the plain version's (``kernels.ssd.ssd_plain`` and its autograd) and the
     bounds: the FLOPs ``ssd_work`` counts at F32_FLOPS_PER_S, the bytes at
     HBM_BYTES_PER_S."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as K
-    from repro_torch.models import ssm
 
     free_card()
     b, s, h, p, G, ds, Q = SSD_SHAPES[label]
@@ -1495,8 +1487,8 @@ def ssd_row(dev, label, max_err, card) -> dict:
 
     ms = median_ms(lambda: forward(ops.ssd_op), runs=10)
     fb_ms = median_ms(lambda: grads(ops.ssd_op), runs=10)
-    plain_ms = median_ms(lambda: forward(ssm.ssd_plain), runs=5, warmup=1)
-    plain_fb_ms = median_ms(lambda: grads(ssm.ssd_plain), runs=5, warmup=1)
+    plain_ms = median_ms(lambda: forward(K.ssd_plain), runs=5, warmup=1)
+    plain_fb_ms = median_ms(lambda: grads(K.ssd_plain), runs=5, warmup=1)
     fwd, bwd, fwd_bytes, fb_bytes = ssd_work(b, s, h, p, G, ds, Q)
     bounds = {"forward_flops_ms": 1e3 * fwd / F32_FLOPS_PER_S,
               "forward_bytes_ms": 1e3 * fwd_bytes / HBM_BYTES_PER_S,

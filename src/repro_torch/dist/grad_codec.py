@@ -12,9 +12,9 @@ The redundant channel rides along through every ring op, so sign tests,
 magnitude clips and consistency checks are single Algorithm-1 comparisons —
 no reconstruction.  With a SECOND redundant modulus (``make(correct=True)``)
 the code is a Redundant RNS that can locate and correct any single
-corrupted channel: ``locate_fault`` / ``correct_packed`` (on the card the
-repair kernel, ``kernels.ops.rrns_repair_op``, one pass over the
-codewords; elsewhere ``_fault_scan``).
+corrupted channel: ``locate_fault`` / ``correct_packed`` /
+``repair_columns_``, each one call of ``kernels.ops.rrns_repair_op`` (the
+repair kernel on the card, its plain version elsewhere).
 
 Layouts:
 
@@ -47,7 +47,6 @@ the same bits either way.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import torch
@@ -58,43 +57,13 @@ from ..core.base import RNSBase, gen_coprime_moduli, make_base
 from ..core.compare import compare_packed_ge
 from ..core.convert import mrs_dot_mod, rns_to_tensor
 from ..core.dispatch import get_backend, resolve_backend
-from ..core.mrc import mrc_unrolled, mrs_ge
+from ..core.mrc import mrc_unrolled
 from ..core.signed import abs_ge_threshold, encode_signed, is_negative
 from ..spans import span
 from . import _tree
 
 __all__ = ["GradCodec", "rns_psum", "rns_psum_tree", "tree_pack",
            "tree_pack_rns", "tree_decode"]
-
-
-@functools.lru_cache(maxsize=None)
-def _survivor_tables(moduli: tuple, redundant: tuple, bits: int, wraps: int):
-    """Per-channel tables for RRNS fault location.
-
-    For each channel c of the base + redundant set: the survivor base
-    (every modulus but m_c, with m_c as its Alg.-3 target) and the
-    mixed-radix digits of the legitimate bound R = (wraps+1)*M in it.  A
-    reconstruction without c lands below R iff c is consistent with the
-    survivors.
-    """
-    chans = tuple(moduli) + tuple(redundant)
-    R = (wraps + 1) * math.prod(moduli)
-    tables = []
-    for c, mc in enumerate(chans):
-        surv = tuple(m for i, m in enumerate(chans) if i != c)
-        if R >= math.prod(surv):
-            raise ValueError(
-                f"RRNS locate: legitimate range (wraps+1)*M = {R} does not "
-                f"fit the survivor product of channel {c}; lower wraps "
-                f"(usually world-1) or widen the redundant moduli"
-            )
-        sb = RNSBase(moduli=surv, ma=mc, bits=bits)
-        digits, x = [], R
-        for m in surv:
-            digits.append(x % m)
-            x //= m
-        tables.append((sb, tuple(digits)))
-    return tuple(tables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -396,76 +365,19 @@ class GradCodec:
         return ok
 
     # ------------------------------------------- RRNS locate-and-correct
-    def takes_repair_kernel(self, t) -> bool:
-        """Whether locating and correcting the codewords ``t`` runs the
-        repair kernel (``kernels.ops.rrns_repair_op``): a locate-and-correct
-        codec that ``use_fused`` lets the kernels take, and a tensor on the
-        card, which must be int32.  Otherwise ``_fault_scan`` runs: the
-        same bits.  Under ``backend("cuda")`` a host tensor raises, as
-        everywhere.
-
-        >>> import torch
-        >>> rrns = GradCodec.make(world=2, correct=True)
-        >>> rrns.takes_repair_kernel(torch.zeros(5, 3, dtype=torch.int32))
-        False
-        """
-        if (self.mb is None or not self.use_fused
-                or resolve_backend(t, self.base) != "cuda"):
-            return False
-        if t.dtype != torch.int32:
-            raise ValueError(f"RRNS repair on the card takes int32 codewords, "
-                             f"got {t.dtype}")
-        return True
-
     def repair_columns_(self, rows, *, wraps: int = 0,
                         verdict: bool = False):
-        """The repair kernel over the (n_channels, B) int32 codewords
-        ``rows`` (a view of any strides, fixed in place; see
-        ``takes_repair_kernel``): ``(counts, verdict)``, the int64
-        ``[repaired, unrepairable, scanned]`` on the card and, with
-        ``verdict=True``, ``locate_fault``'s (B,) verdicts.  Under a
-        profiler the span ``rrns.scan``."""
+        """Locate-and-correct the (n_channels, B) codewords ``rows`` in
+        place (a view of any strides, in the base's lane dtype): one call of
+        ``kernels.ops.rrns_repair_op``, the repair kernel on the card and
+        its plain version elsewhere, the same bits.  Returns ``(counts,
+        verdict)``: the int64 ``[repaired, unrepairable, scanned]`` on
+        ``rows``' device and, with ``verdict=True``, ``locate_fault``'s (B,)
+        verdicts.  Under a profiler the span ``rrns.scan``."""
         from ..kernels.ops import rrns_repair_op
 
         with span("rrns.scan"):
             return rrns_repair_op(self, rows, wraps=wraps, verdict=verdict)
-
-    def _fault_scan(self, folded, wraps: int):
-        """Per-channel (consistent?, corrected-residue) candidates: for each
-        channel c an MRC over the surviving channels, a mixed-radix compare
-        against R = (wraps+1)*M, and the Alg.-3 extension back to m_c."""
-        folded, _ = self._split(folded)
-        if self.mb is None:
-            raise ValueError(
-                "fault location needs the second redundant modulus: build "
-                "the codec with GradCodec.make(correct=True)"
-            )
-        tables = _survivor_tables(
-            self.base.moduli, self.redundant, self.base.bits, int(wraps)
-        )
-        chans = tuple(self.base.moduli) + self.redundant
-        oks, fixes = [], []
-        for c, (sb, r_digits) in enumerate(tables):
-            with span("rrns.mrc"):
-                xs = torch.cat([folded[..., :c], folded[..., c + 1:]], dim=-1)
-                d = mrc_unrolled(sb, xs)
-            with span("rrns.compare"):
-                bound = torch.tensor(r_digits, dtype=d.dtype,
-                                     device=d.device).expand(d.shape)
-                oks.append(~mrs_ge(d, bound))  # reconstruction-sans-c < R
-            with span("rrns.extend"):
-                fixes.append(mrs_dot_mod(sb, d, (chans[c],))[..., 0])
-        return torch.stack(oks, dim=-1), torch.stack(fixes, dim=-1)
-
-    def _verdict(self, ok):
-        """Per-element verdict: -1 clean, the channel index on a unique hit,
-        -2 uncorrectable otherwise."""
-        with span("rrns.verdict"):
-            cnt = ok.sum(dim=-1)
-            hit = torch.argmax(ok.to(torch.int32), dim=-1).to(torch.int32)
-            return torch.where(
-                cnt == self.n_channels, -1, torch.where(cnt == 1, hit, -2)
-            ).to(torch.int32)
 
     def locate_fault(self, folded, *, wraps: int = 0):
         """Locate a single corrupted channel per element: int32 over
@@ -484,17 +396,16 @@ class GradCodec:
         >>> rrns.locate_fault(bad).tolist()      # elt 1 stays clean
         [1, -1]
         """
-        raw, _ = self._split(folded)
-        if self.takes_repair_kernel(raw):
-            return self.correct_packed(raw, wraps=wraps)[1]
-        ok, _ = self._fault_scan(folded, wraps)
-        return self._verdict(ok)
+        return self.correct_packed(folded, wraps=wraps)[1]
 
     def correct_packed(self, folded, *, wraps: int = 0):
         """Locate-and-correct: ``(corrected, fault)``, where ``fault`` is
         ``locate_fault``'s verdict and ``corrected`` has each single-fault
         element's bad channel rebuilt from the survivors (clean and
-        uncorrectable elements pass through untouched).
+        uncorrectable elements pass through untouched).  One
+        ``repair_columns_`` call on an (n_channels, B) copy in the base's
+        lane dtype; ``corrected`` comes back in ``folded``'s layout, type
+        and dtype.
 
         >>> import torch
         >>> rrns = GradCodec.make(world=2, correct=True)
@@ -505,18 +416,12 @@ class GradCodec:
         True
         """
         folded, proto = self._split(folded)
-        if self.takes_repair_kernel(folded):   # the kernel, on a copy
-            rows = folded.reshape(-1, self.n_channels).T.clone()
-            _, fault = self.repair_columns_(rows, wraps=wraps, verdict=True)
-            return (self._rejoin(rows.T.reshape(folded.shape), proto),
-                    fault.reshape(folded.shape[:-1]))
-        ok, fixes = self._fault_scan(folded, wraps)
-        fault = self._verdict(ok)
-        with span("rrns.fix"):
-            hit = fault[..., None] == torch.arange(
-                self.n_channels, dtype=torch.int32, device=fault.device)
-            fixed = torch.where(hit, fixes.to(folded.dtype), folded)
-        return self._rejoin(fixed, proto), fault
+        rows = folded.reshape(-1, self.n_channels).T.to(self.base.tdtype,
+                                                        copy=True)
+        _, fault = self.repair_columns_(rows, wraps=wraps, verdict=True)
+        fixed = rows.T.reshape(folded.shape).to(folded.dtype)
+        return (self._rejoin(fixed, proto),
+                fault.reshape(folded.shape[:-1]))
 
     def range_ok(self, p1, p2):
         """Packed-ge usable as an overflow guard: (p1 >= p2) per Alg. 1."""

@@ -2,8 +2,8 @@
 // pass over the codewords, for Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the reference's GradCodec._fault_scan is plain
-// jnp.  On the card it takes the place of the port's plain-torch chain
-// _fault_scan -> _verdict -> where (dist/grad_codec.py), with its bits.
+// jnp.  Its plain-torch version is rrns_repair_plain, the clean test and
+// then survivor_scan and its fix (kernels/rrns_repair.py), with its bits.
 //
 // In:  x, n + 2 residues a column (n base channels, then m_a and m_b), read
 //      and fixed where they lie: channel c of column b at x[c * xchs +
@@ -19,9 +19,9 @@
 // (kernels/rrns_repair.py): the base residues canonical, their MRC
 // (mrc_warp.cuh, mrc_thread: the FFMA-rounded lazy step) and the Alg.-3
 // dots into m_a and m_b equal to the carried pair.  Such a column is
-// consistent in every channel, so _fault_scan's verdict is -1: nothing is
-// written.  A column that fails it (a fault: rare) takes full_scan, the
-// survivor scan in _fault_scan's own int32 operations, wrapping products
+// consistent in every channel, so survivor_scan's verdict is -1: nothing
+// is written.  A column that fails it (a fault: rare) takes full_scan, the
+// survivor scan in survivor_scan's own int32 operations, wrapping products
 // and floored remainders included, so the bits agree on any input.  The
 // block stages the tables into shared memory with cp.async (columns.cuh)
 // and walks its columns in a grid-stride loop; its counts are summed in
@@ -63,7 +63,7 @@ struct Column {
   int r[C];
 };
 
-// _fault_scan and _verdict on one column: for each channel c an MRC of the
+// survivor_scan on one column: for each channel c an MRC of the
 // survivors (mrc_unrolled), "below R" (not mrs_ge against R's digits) and
 // the Alg.-3 extension to m_c (mrs_dot_mod).  Returns the verdict, and in
 // *fix the extension of the first consistent channel.  Out of line: the

@@ -18,7 +18,10 @@ and handle:
   a CPU tensor takes the kernel's plain torch version;
 * constraints: the kernels need 15-bit (int32-lane) bases; wider bases
   raise here (``repro_torch.core`` serves them); the codec kernels also
-  need M < 2**45 (three 15-bit limbs), as the reference's do;
+  need M < 2**45 (three 15-bit limbs), as the reference's do.  On the
+  CPU the RRNS repair's plain version takes any base (the codec's
+  locate-and-correct runs through it); on the card its kernel's limits
+  raise;
 * ``RnsArray`` operands in place of the ``base, x[, xa]`` argument group.
   ``modmul_op`` on such operands reduces ALL channels, redundant rows
   included, each in its own modulus, and returns an ``RnsArray``.
@@ -44,7 +47,7 @@ from .mrc import column_image, mrc_kernel_call, mrc_plain
 from .rns_compare import compare_kernel_call, compare_plain
 from .rrns_repair import (repair_image, rrns_repair_kernel_call,
                           rrns_repair_plain)
-from .ssd import SSDFunction, check_operands, dense
+from .ssd import SSDFunction, check_operands, dense, ssd_plain
 
 __all__ = ["mrc_op", "modmul_op", "compare_op", "codec_encode_op",
            "codec_decode_op", "rrns_repair_op", "mont_mul_op",
@@ -276,34 +279,35 @@ def codec_decode_op(codec, summed, *, channel_major: bool = False):
 def _repair_image(base: RNSBase, redundant: tuple[int, ...], wraps: int,
                   device: torch.device):
     """The repair's table image (``rrns_repair.repair_image``) of a codec's
-    base and redundant pair at ``wraps``, from ``_survivor_tables``, as a
-    uint8 tensor on ``device``, uploaded once."""
-    from ..dist.grad_codec import _survivor_tables
-
-    tables = _survivor_tables(base.moduli, redundant, base.bits, wraps)
-    return torch.from_numpy(repair_image(base, redundant, tables)).to(device)
+    base and redundant pair at ``wraps`` as a uint8 tensor on ``device``,
+    uploaded once."""
+    return torch.from_numpy(repair_image(base, redundant, wraps)).to(device)
 
 
 def rrns_repair_op(codec, x, *, wraps: int = 0, verdict: bool = False):
-    """RRNS locate-and-correct of the (n_channels, B) int32 codewords ``x``
-    (a view of any strides, fixed in place) of a locate-and-correct codec:
-    each column that ``GradCodec.correct_packed`` would repair gets its
-    faulted residue rebuilt, with the same bits.  Returns the int64 counts
-    ``[repaired, unrepairable, scanned]`` (``scanned``: the columns that
-    failed the clean test) on ``x``'s device, and with ``verdict=True`` the
-    (B,) int32 verdicts of ``locate_fault``; nothing waits for the host.
+    """RRNS locate-and-correct of the (n_channels, B) codewords ``x`` (a
+    view of any strides, fixed in place) of a locate-and-correct codec:
+    each column with a single faulted channel gets its residue rebuilt.
+    Returns the int64 counts ``[repaired, unrepairable, scanned]``
+    (``scanned``: the columns that failed the clean test) on ``x``'s
+    device, and with ``verdict=True`` the (B,) int32 verdicts (-1 clean,
+    the faulted channel, -2 unrepairable); nothing waits for the host.
+
+    A CPU tensor takes the plain version, of any base, in the base's lane
+    dtype.  On the card the kernel runs: int32 codewords of 15-bit moduli
+    and 1 to ``rrns_repair.MAX_BASE`` base channels, or it raises.  Both
+    give the same bits.
     """
     if codec.mb is None:
         raise ValueError("rrns_repair_op needs a locate-and-correct codec: "
                          "GradCodec.make(correct=True)")
+    if not _on_card(x):
+        return rrns_repair_plain(codec, x, wraps=wraps, verdict=verdict)
     _check_bits(codec.base)
-    if _on_card(x):
-        image = _repair_image(codec.base, codec.redundant, int(wraps),
-                              x.device)
-        counts, out = rrns_repair_kernel_call(x, image, verdict=verdict)
-        rrns_repair_op.launches += int(x.shape[1] > 0)
-        return counts, out
-    return rrns_repair_plain(codec, x, wraps=wraps, verdict=verdict)
+    image = _repair_image(codec.base, codec.redundant, int(wraps), x.device)
+    counts, out = rrns_repair_kernel_call(x, image, verdict=verdict)
+    rrns_repair_op.launches += int(x.shape[1] > 0)
+    return counts, out
 
 
 # ------------------------------------------------- Montgomery (dual-base)
@@ -453,9 +457,8 @@ def ssd_op(x, dt, A, B, C, chunk: int, initial_state=None):
     h, p) without the D skip, the final state (b, h, ds, p)), with its
     gradients.  A CUDA tensor runs the kernels (``kernels/ssd.py``; f32
     operands, or it raises), 4 launches forward and 6 backward, counted
-    here; a CPU tensor the plain version, ``models/ssm.py::ssd_plain``."""
+    here; a CPU tensor the plain version, ``kernels/ssd.py::ssd_plain``."""
     if not _on_card(x):
-        from ..models.ssm import ssd_plain   # the models import this module
         return ssd_plain(x, dt, A, B, C, chunk, initial_state)
     if B.dim() == 3:                      # one group, without its axis
         B, C = B[:, :, None], C[:, :, None]

@@ -1,55 +1,101 @@
 """The RRNS repair in one pass over the codewords: the CUDA kernel
-``csrc/rrns_repair.cu`` and its plain torch version.
+``csrc/rrns_repair.cu`` and its plain torch version, ``rrns_repair_plain``.
 
 The reference package has no kernel for it: its ``GradCodec._fault_scan``
-is plain jnp, and so is the port's.  The kernel replaces the port's chain
-``_fault_scan`` -> ``_verdict`` -> ``where`` on the card, with the same
-bits.
+is plain jnp.  Here that scan is ``survivor_scan`` (the survivor bases and
+R's digits: ``survivor_tables``), and both versions run it only where a
+column fails a clean test, with the same bits.
 
 A column of n base residues and the redundant pair (m_a, m_b) is *clean*
 when its base residues are canonical (x_i < m_i) and their value X < M,
 extended to m_a and m_b (Alg. 2, then Alg. 3), gives the carried pair.
 Then all n + 2 residues are those of one X < M, so every survivor base
 (all channels but one) reconstructs X, which is below R = (wraps + 1) M:
-``_fault_scan`` finds every channel consistent and ``_verdict`` gives -1,
-whatever ``wraps``.  A clean column is left as it is.  Every other column
-takes ``_fault_scan``'s five-survivor scan, then ``_verdict``; on a unique
-hit the faulted channel's residue is rebuilt in place.  The kernel does
-that scan in its own registers, with the same int32 operations as
-``mrc_unrolled``, ``mrs_ge`` and ``mrs_dot_mod``; the plain version calls
-the codec's ``_fault_scan`` and ``_verdict`` on the columns that fail the
-clean test.
+``survivor_scan`` finds every channel consistent and gives the verdict
+-1, whatever ``wraps``.  A clean column is left as it is.  Every other
+column takes the scan; on a unique hit the faulted channel's residue is
+rebuilt in place.  The kernel does that scan in its own registers, with
+the same int32 operations as ``mrc_unrolled``, ``mrs_ge`` and
+``mrs_dot_mod``, which the plain version calls.
 
-Both versions take an (nch, B) int32 view of the codewords (any strides;
-nch = n + 2), fix it in place, and return the int64 counts
-``[repaired, unrepairable, scanned]`` (verdict >= 0, verdict == -2, clean
-test failed) and, with ``verdict=True``, the (B,) int32 verdicts.  The
-kernel reads the codec's tables from one image (``repair_image``; ``ops``
-caches it per codec and ``wraps``).
+Both versions take an (nch, B) view of the codewords (any strides; nch =
+n + 2), fix it in place, and return the int64 counts ``[repaired,
+unrepairable, scanned]`` (verdict >= 0, verdict == -2, clean test failed)
+and, with ``verdict=True``, the (B,) int32 verdicts.  The kernel takes
+int32 codewords of 1 to MAX_BASE base channels of 15-bit moduli and reads
+the codec's tables from one image (``repair_image``; ``ops`` caches it per
+codec and ``wraps``); the plain version any base, in its lane dtype.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
+from ..core.base import RNSBase
+from ..core.convert import mrs_dot_mod
+from ..core.mrc import mrc_unrolled, mrs_ge
 from . import build
 from .mrc import launch_geometry
 
-__all__ = ["rrns_repair_kernel_call", "rrns_repair_plain", "repair_layout",
-           "repair_image", "MAX_BASE", "LAYOUT_FIELDS"]
+__all__ = ["rrns_repair_kernel_call", "rrns_repair_plain", "survivor_scan",
+           "survivor_tables", "repair_layout", "repair_image", "MAX_BASE",
+           "LAYOUT_FIELDS", "REPAIR_COLUMNS"]
 
 # Widest base the kernel takes (csrc/rrns_repair.cu, kMaxBase): every base
 # of 15-bit moduli with M < 2**45, which the codec kernels take.
 MAX_BASE = 3
+# Columns one pass of the plain version holds at once: its temporaries are
+# a few times this many residues a channel (about 1.3 GB at 2**24 on a
+# five-channel codec), where one pass over a 10**9-column wire would need
+# several times the wire itself.
+REPAIR_COLUMNS = 1 << 24
 LAYOUT_FIELDS = ("n", "mod", "mu", "beta", "smod", "sinv", "sbeta", "rdig",
                  "tri", "image")
 
 
 def _up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def survivor_tables(moduli: tuple, redundant: tuple, bits: int, wraps: int):
+    """Per-channel tables for RRNS fault location.
+
+    For each channel c of the base + redundant set: the survivor base
+    (every modulus but m_c, with m_c as its Alg.-3 target) and the
+    mixed-radix digits of the legitimate bound R = (wraps+1)*M in it.  A
+    reconstruction without c lands below R iff c is consistent with the
+    survivors.
+    """
+    chans = tuple(moduli) + tuple(redundant)
+    R = (wraps + 1) * math.prod(moduli)
+    tables = []
+    for c, mc in enumerate(chans):
+        surv = tuple(m for i, m in enumerate(chans) if i != c)
+        if R >= math.prod(surv):
+            raise ValueError(
+                f"RRNS locate: legitimate range (wraps+1)*M = {R} does not "
+                f"fit the survivor product of channel {c}; lower wraps "
+                f"(usually world-1) or widen the redundant moduli"
+            )
+        sb = RNSBase(moduli=surv, ma=mc, bits=bits)
+        digits, x = [], R
+        for m in surv:
+            digits.append(x % m)
+            x //= m
+        tables.append((sb, tuple(digits)))
+    return tuple(tables)
+
+
+def _tables(codec, wraps: int):
+    """``survivor_tables`` of a locate-and-correct codec at ``wraps``."""
+    base = codec.base
+    return survivor_tables(base.moduli, codec.redundant, base.bits,
+                           int(wraps))
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,17 +128,18 @@ def _layout_arg(n: int):
     return (ctypes.c_int * len(LAYOUT_FIELDS))(*(L[f] for f in LAYOUT_FIELDS))
 
 
-def repair_image(base, redundant, survivors) -> np.ndarray:
+def repair_image(base, redundant, wraps: int) -> np.ndarray:
     """The repair's tables as a uint8 image (``repair_layout``).
 
-    ``base`` is the codec's ``RNSBase``, ``redundant`` its (m_a, m_b),
-    ``survivors`` ``grad_codec._survivor_tables``'s output for one
-    ``wraps``: per channel its survivor ``RNSBase`` (target m_c) and R's
-    digits."""
+    ``base`` is the codec's ``RNSBase``, ``redundant`` its (m_a, m_b);
+    the survivor tables are ``survivor_tables``' at ``wraps``: per channel
+    its survivor ``RNSBase`` (target m_c) and R's digits."""
     n = base.n
-    if len(redundant) != 2 or len(survivors) != n + 2:
+    if len(redundant) != 2:
         raise ValueError("repair_image: a locate-and-correct codec has two "
-                         "redundant moduli and a survivor base a channel")
+                         "redundant moduli")
+    survivors = survivor_tables(base.moduli, tuple(redundant), base.bits,
+                                int(wraps))
     L = repair_layout(n)
     mod = tuple(base.moduli) + tuple(redundant)
     parts = {
@@ -115,12 +162,12 @@ def repair_image(base, redundant, survivors) -> np.ndarray:
     return img
 
 
-def _check(what: str, x_t, nch: int | None = None) -> int:
-    """n for an (n + 2, B) int32 operand, or raise: of the codec's ``nch``
-    channels when given (the plain version), else of 1 to MAX_BASE base
-    channels (the kernel)."""
-    if x_t.dim() != 2 or x_t.dtype != torch.int32:
-        raise ValueError(f"{what}: the codewords must be an (nch, B) int32 "
+def _check(what: str, x_t, dtype=torch.int32, nch: int | None = None) -> int:
+    """n for an (n + 2, B) operand of ``dtype``, or raise: of the codec's
+    ``nch`` channels when given (the plain version), else of 1 to MAX_BASE
+    base channels (the kernel)."""
+    if x_t.dim() != 2 or x_t.dtype != dtype:
+        raise ValueError(f"{what}: the codewords must be an (nch, B) {dtype} "
                          f"view, got {x_t.dtype} {tuple(x_t.shape)}")
     n = x_t.shape[0] - 2
     if nch is not None and x_t.shape[0] != nch:
@@ -133,32 +180,72 @@ def _check(what: str, x_t, nch: int | None = None) -> int:
     return n
 
 
-def rrns_repair_plain(codec, x_t, *, wraps: int = 0, verdict: bool = False):
-    """The kernel's function in plain torch (any device), for the
-    locate-and-correct ``codec``: the clean test on every column, then the
-    codec's own ``_fault_scan`` and ``_verdict`` on the columns that fail
-    it, each unique hit's rebuilt residue written in place."""
-    n = _check("rrns_repair", x_t, codec.n_channels)
-    dev = x_t.device
-    folded = x_t.T
-    m = codec.base.tensor("moduli_np", dev, x_t.dtype)
-    canon = ((folded[:, :n] >= 0) & (folded[:, :n] < m)).all(dim=1)
-    ext = codec.normalize(torch.where(canon[:, None], folded, 0))[:, n:]
-    clean = canon & (ext == folded[:, n:]).all(dim=1)
-    cols = torch.nonzero(~clean)[:, 0]
-    ok, fixes = codec._fault_scan(folded[cols], wraps)
-    v = codec._verdict(ok)
+def survivor_scan(codec, x_t, wraps: int = 0):
+    """The survivor scan of every column of the (nch, B) codewords ``x_t``
+    of a locate-and-correct ``codec``: ``(verdict, fixes)``.  For each
+    channel c an MRC over the surviving channels, a mixed-radix compare
+    against R = (wraps+1)*M and the Alg.-3 extension back to m_c.  The
+    (B,) int32 verdict is -1 where every channel is consistent, the channel
+    on a unique hit, -2 otherwise; ``fixes`` (nch, B) holds each channel's
+    rebuilt residue, in ``x_t``'s dtype."""
+    chans = tuple(codec.base.moduli) + codec.redundant
+    cols = x_t.T
+    oks, fixes = [], []
+    for c, (sb, r_digits) in enumerate(_tables(codec, wraps)):
+        d = mrc_unrolled(sb, torch.cat([cols[:, :c], cols[:, c + 1:]], dim=1))
+        bound = torch.tensor(r_digits, dtype=d.dtype,
+                             device=d.device).expand(d.shape)
+        oks.append(~mrs_ge(d, bound))  # reconstruction-sans-c < R
+        fixes.append(mrs_dot_mod(sb, d, (chans[c],))[:, 0])
+    ok = torch.stack(oks)
+    cnt = ok.sum(dim=0)
+    hit = torch.argmax(ok.to(torch.int32), dim=0).to(torch.int32)
+    verdict = torch.where(cnt == len(chans), -1,
+                          torch.where(cnt == 1, hit, -2)).to(torch.int32)
+    return verdict, torch.stack(fixes)
+
+
+def _repair_pass(codec, x_t, wraps: int):
+    """One pass of ``rrns_repair_plain`` over the (nch, b) columns ``x_t``,
+    fixed in place: ``(counts, the failing columns, their verdicts)``."""
+    base, n = codec.base, codec.base.n
+    m = base.tensor("moduli_np", x_t.device, x_t.dtype)
+    cols = x_t.T
+    canon = ((cols[:, :n] >= 0) & (cols[:, :n] < m)).all(dim=1)
+    digits = mrc_unrolled(base, torch.where(canon[:, None], cols[:, :n], 0))
+    ext = mrs_dot_mod(base, digits, codec.redundant)
+    clean = canon & (ext == cols[:, n:]).all(dim=1)
+    at = torch.nonzero(~clean)[:, 0]
+    v, fixes = survivor_scan(codec, x_t[:, at], wraps)
     hit = torch.nonzero(v >= 0)[:, 0]
     rows = v[hit].to(torch.int64)
-    x_t[rows, cols[hit]] = fixes[hit, rows].to(x_t.dtype)
-    counts = torch.stack([torch.tensor(hit.numel(), device=dev),
+    x_t[rows, at[hit]] = fixes[rows, hit]
+    counts = torch.stack([torch.tensor(hit.numel(), device=x_t.device),
                           (v == -2).sum(),
-                          torch.tensor(cols.numel(), device=dev)])
-    if not verdict:
-        return counts.to(torch.int64), None
-    out = torch.full((x_t.shape[1],), -1, dtype=torch.int32, device=dev)
-    out[cols] = v
-    return counts.to(torch.int64), out
+                          torch.tensor(at.numel(), device=x_t.device)])
+    return counts, at, v
+
+
+def rrns_repair_plain(codec, x_t, *, wraps: int = 0, verdict: bool = False):
+    """The kernel's function in plain torch (any device, any base), for
+    the locate-and-correct ``codec``, on codewords in its base's lane dtype:
+    the clean test on every column, then ``survivor_scan`` on the columns
+    that fail it, each unique hit's rebuilt residue written in place;
+    REPAIR_COLUMNS columns a pass (each column is its own codeword, so the
+    passes give the bits of one pass over the whole buffer)."""
+    _check("rrns_repair", x_t, codec.base.tdtype, codec.n_channels)
+    _tables(codec, wraps)               # a wraps R does not fit raises here
+    dev, B = x_t.device, x_t.shape[1]
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    out = (torch.full((B,), -1, dtype=torch.int32, device=dev) if verdict
+           else None)
+    for a in range(0, B, REPAIR_COLUMNS):
+        part = x_t[:, a : a + REPAIR_COLUMNS]
+        c, at, v = _repair_pass(codec, part, wraps)
+        counts += c
+        if out is not None:
+            out[a + at] = v
+    return counts, out
 
 
 def rrns_repair_kernel_call(x_t, image, *, verdict: bool = False):

@@ -1,9 +1,12 @@
 """The SSD core of Mamba2 (arXiv:2405.21060): the CUDA kernels
-``csrc/ssd.cu``, forward and backward, their plain torch mirrors stage by
-stage, and the ``torch.autograd.Function`` that runs the kernels.
+``csrc/ssd.cu``, forward and backward, their plain torch version
+``ssd_plain`` with its mirrors stage by stage, and the
+``torch.autograd.Function`` that runs the kernels.
 
 The reference package has no kernel here: its ``ssd`` is plain jnp, and
-``models/ssm.py::ssd_plain`` keeps that body for CPU tensors.
+``ssd_plain`` keeps that body for CPU tensors, its four-operand einsums
+written out as batched matmuls over (batch, chunk, head) with the order of
+the products fixed, so that no (b, c, q, k, h, p) tensor is ever formed.
 ``models/ssm.py::ssd`` calls ``ops.ssd_op``, which on the card runs
 ``SSDFunction``: the forward's four launches (the chunk states and the
 within-chunk cumulative decay, the scan between chunks, C B^T a group, the
@@ -12,13 +15,22 @@ scan, dCB over a group's heads, dx, dB and dC over a group's heads, dcum
 -> ddt, dA).  No (Q x Q)-a-head tensor is
 written to device memory (``csrc/ssd.cu``).
 
+One departure from the reference, in the backward pass only: the
+reference builds the decay mask as ``where(tri, exp(rel), 0)``.  Above the
+diagonal ``rel`` is positive and can pass 88.7, where f32 ``exp`` is inf;
+the forward drops those entries, but the gradient of the ``where`` is then
+``0 * inf``, NaN.  ``_decay_mask`` takes the mask before the ``exp``,
+``exp(where(tri, rel, -inf))``: the same forward bit for bit, and every
+gradient finite.  The kernels take every ``exp`` of a non-positive
+difference.
+
 Contract (``models/ssm.py::ssd``): x (b, s, h, p), dt (b, s, h), A (h,),
 B, C (b, s, G, ds), ``chunk`` Q dividing s, the initial state (b, h, ds, p)
 or None; returns y (b, s, h, p) without the D skip and the final state.
 The kernels take f32 contiguous operands with Q <= 256, p <= 64, p and ds
 multiples of 4, G dividing h; ``check_operands`` raises on anything else.
 ``ops.ssd_op`` applies ``SSDFunction`` to CUDA tensors only; a CPU tensor
-runs ``models/ssm.py::ssd_plain``.  The plain mirrors are the oracles: the
+runs ``ssd_plain``.  The plain mirrors are the oracles: the
 tests hold them against ``torch.autograd`` of ``ssd_plain``, and the
 kernels against them on the card (the tests and ``chip_smoke.py``).
 
@@ -33,15 +45,16 @@ chunks, whose product with dy is dcum's term from them.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from . import build
 
-__all__ = ["SSDFunction", "ssd_forward_plain", "ssd_backward_plain",
-           "ssd_kernel_forward", "ssd_kernel_backward", "check_operands",
-           "dense", "FORWARD_LAUNCHES", "BACKWARD_LAUNCHES", "MAX_CHUNK",
-           "MAX_HEADDIM"]
+__all__ = ["SSDFunction", "ssd_plain", "ssd_forward_plain",
+           "ssd_backward_plain", "ssd_kernel_forward", "ssd_kernel_backward",
+           "check_operands", "dense", "FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
+           "MAX_CHUNK", "MAX_HEADDIM"]
 
 FORWARD_LAUNCHES = 4
 BACKWARD_LAUNCHES = 6
@@ -60,14 +73,70 @@ def _dims(x, B, Q):
     return b, s, h, p, G, ds, s // Q
 
 
-# ------------------------------------------------------------ plain mirrors
-def _decay(cum):
-    """L[q, k] = exp(cum_q - cum_k) for k <= q, else 0, with the mask taken
-    before the exp (``models/ssm.py::_decay_mask``): (..., Q, Q)."""
+# ------------------------------------------- plain version, plain mirrors
+def _decay_mask(cum):
+    """L[i, j] = exp(cum_i - cum_j) for i >= j, else 0, from the
+    within-chunk cumulative decay ``cum`` (..., Q): (..., Q, Q).  The mask
+    is taken before the ``exp`` (module docstring)."""
     Q = cum.shape[-1]
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=cum.device).tril()
     rel = cum[..., :, None] - cum[..., None, :]
-    return torch.exp(rel.masked_fill(~tri, -float("inf")))
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=cum.device).tril()
+    return torch.exp(rel.masked_fill(~tri, -math.inf))
+
+
+def ssd_plain(x, dt, A, B, C, chunk: int, initial_state=None):
+    """``models.ssm.ssd`` in plain torch: the body a CPU tensor runs.  B
+    and C of G groups are read by a broadcast view.  Each chunk state is
+    kept as (b G, ds, h/G, p), the layout the off-diagonal product reads.
+    One group runs as a group axis of size one, folded into the batch
+    where the chunk states are stacked: the same products and kernels as
+    a call without the axis."""
+    b, s, h, p = x.shape
+    if B.ndim == 3:
+        B, C = B[:, :, None], C[:, :, None]
+    G, ds = B.shape[2], B.shape[3]
+    hg = h // G
+    Q = chunk
+    nc = s // Q
+    xc = x.reshape(b, nc, Q, h, p)
+    Bc = B.reshape(b, nc, Q, G, ds).transpose(2, 3)       # (b, c, G, Q, ds)
+    Cc = C.reshape(b, nc, Q, G, ds).transpose(2, 3)
+    dtc = dt.reshape(b, nc, Q, h)
+    cum = torch.cumsum((dt * A).reshape(b, nc, Q, h), dim=2)
+
+    # within a chunk: y_diag[q] = sum_k (C_q . B_k) L[q, k] dt_k x_k, as one
+    # (b, c, h, q, k) weight times x over k
+    cum_h = cum.permute(0, 1, 3, 2)                       # (b, c, h, Q)
+    scores = Cc @ Bc.transpose(-1, -2)                    # (b, c, G, q, k)
+    M = (scores[:, :, :, None] * _decay_mask(cum_h).view(b, nc, G, hg, Q, Q)
+         * dtc.permute(0, 1, 3, 2).reshape(b, nc, G, hg, 1, Q)).reshape(
+             b, nc, h, Q, Q)                              # (b, c, h, q, k)
+    y_diag = (M @ xc.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+
+    # chunk states: S_c = sum_k exp(cum_last - cum_k) dt_k B_k (x) x_k, one
+    # (ds, h/G, p) state a (row, group), (b G, c, ds, h/G, p)
+    suffix = torch.exp(cum[:, :, -1:, :] - cum)          # (b, c, Q, h)
+    xw = xc * (suffix * dtc)[..., None]
+    S_c = (Bc.transpose(-1, -2) @ xw.reshape(b, nc, Q, G, hg * p).transpose(
+        2, 3)).transpose(1, 2).reshape(b * G, nc, ds, hg, p)
+
+    # between chunks: S_prev[c] = exp(total[c-1]) S_prev[c-1] + S_c[c-1]
+    total = torch.exp(cum[:, :, -1, :])                   # (b, c, h)
+    S = (x.new_zeros((b * G, ds, hg, p)) if initial_state is None
+         else initial_state.view(b, G, hg, ds, p).transpose(2, 3).reshape(
+             b * G, ds, hg, p))
+    prevs = []
+    for c in range(nc):
+        prevs.append(S)
+        S = S * total[:, c].view(b, G, hg).reshape(b * G, 1, hg, 1) + S_c[:, c]
+    S_prevs = torch.stack(prevs, dim=1)                   # (b G, c, ds, hg, p)
+
+    # from earlier chunks: y_off[q] = exp(cum_q) C_q . S_prev
+    y_off = (Cc @ S_prevs.view(b, G, nc, ds, hg * p).transpose(1, 2)
+             ).transpose(2, 3).reshape(b, nc, Q, h, p) * torch.exp(cum)[
+                 ..., None]
+    return ((y_diag + y_off).reshape(b, s, h, p),
+            S.view(b, G, ds, hg, p).transpose(2, 3).reshape(b, h, ds, p))
 
 
 def _heads(t, hg: int):
@@ -104,7 +173,8 @@ def ssd_forward_plain(x, dt, A, B, C, Q: int, initial_state=None):
         S_run = S_run * T[:, c, :, None, None] + S_c[:, c]
     S = torch.stack(prevs, dim=1)
     CB = torch.einsum("bcqgn,bckgn->bcgqk", Cc, Bc)
-    W = (CB.repeat_interleave(hg, dim=2) * _decay(cum)) * dtk[..., None, :]
+    W = (CB.repeat_interleave(hg, dim=2) * _decay_mask(cum)) * dtk[
+        ..., None, :]
     y = torch.einsum("bchqk,bckhp->bcqhp", W, xc) + torch.einsum(
         "bcqhn,bchnp->bcqhp", Ch, S) * torch.exp(cum).permute(
             0, 1, 3, 2)[..., None]
@@ -155,7 +225,7 @@ def ssd_backward_plain(x, dt, A, B, C, cum, S, CB, dy, dfinal, *,
     dinit = g if want_initial else None
 
     # 3
-    L = _decay(cum)
+    L = _decay_mask(cum)
     dM = torch.einsum("bcqhp,bckhp->bchqk", dyc, xc)
     v = dM * CB.repeat_interleave(hg, dim=2) * L
     cs = v.sum(dim=-2)

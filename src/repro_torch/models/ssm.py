@@ -10,20 +10,11 @@ of the depthwise conv's last W - 1 inputs.
 The dtypes are the reference's: the projections and the conv run in the
 compute dtype, and so does the conv ring; x, B, C, dt and the state S are
 f32 (the SSD core, ``ssd``, runs in the dtype it is given on the CPU, in
-f32 on the card).  The reference has no Pallas kernel here; its
-four-operand einsums are written out as batched matmuls over (batch,
-chunk, head) with the order of the products fixed, so that no (b, c, q, k,
-h, p) tensor is ever formed.  On the card ``ssd`` runs the port's own CUDA
-kernels, forward and backward (``kernels.ops.ssd_op``): no (b, c, h, Q, Q)
-weight in device memory, and one kernel for the scan between chunks.
-
-One departure, in the backward pass only: the reference builds the decay
-mask as ``where(tri, exp(rel), 0)``.  Above the diagonal ``rel`` is
-positive and can pass 88.7, where f32 ``exp`` is inf; the forward drops
-those entries, but the gradient of the ``where`` is then ``0 * inf``, NaN.
-``_decay_mask`` takes the mask before the ``exp``,
-``exp(where(tri, rel, -inf))``: the same forward bit for bit, and every
-gradient finite.
+f32 on the card).  The reference has no Pallas kernel here.  On the card
+``ssd`` runs the port's own CUDA kernels, forward and backward
+(``kernels.ops.ssd_op``): no (b, c, h, Q, Q) weight in device memory, and
+one kernel for the scan between chunks.  On the CPU it runs their plain
+version beside them, ``kernels.ssd.ssd_plain``.
 """
 from __future__ import annotations
 
@@ -136,16 +127,6 @@ def _conv_on_mesh(x, w, b):
                      x_pl)
 
 
-def _decay_mask(cum):
-    """L[i, j] = exp(cum_i - cum_j) for i >= j, else 0, from the
-    within-chunk cumulative decay ``cum`` (..., Q): (..., Q, Q).  The mask
-    is taken before the ``exp`` (module docstring)."""
-    Q = cum.shape[-1]
-    rel = cum[..., :, None] - cum[..., None, :]
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=cum.device).tril()
-    return torch.exp(rel.masked_fill(~tri, -math.inf))
-
-
 @traced("ssm.ssd")
 def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
     """The chunked SSD scan.
@@ -155,64 +136,9 @@ def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
     (g + 1) h/G - 1); ``chunk`` divides s; ``initial_state`` (b, h, ds, p)
     or None for zeros.  Returns (y (b, s, h, p) without the D skip, the
     final state (b, h, ds, p)).  ``kernels.ops.ssd_op`` runs it: a CUDA
-    tensor takes the kernels (f32, or it raises), a CPU one ``ssd_plain``
-    in the dtype of its inputs."""
+    tensor takes the kernels (f32, or it raises), a CPU one
+    ``kernels.ssd.ssd_plain`` in the dtype of its inputs."""
     return ssd_op(x, dt, A, B, C, chunk, initial_state)
-
-
-def ssd_plain(x, dt, A, B, C, chunk: int, initial_state=None):
-    """``ssd`` in plain torch: the body a CPU tensor runs.  B
-    and C of G groups are read by a broadcast view.  Each chunk state is
-    kept as (b G, ds, h/G, p), the layout the off-diagonal product reads.
-    One group runs as a group axis of size one, folded into the batch
-    where the chunk states are stacked: the same products and kernels as
-    a call without the axis."""
-    b, s, h, p = x.shape
-    if B.ndim == 3:
-        B, C = B[:, :, None], C[:, :, None]
-    G, ds = B.shape[2], B.shape[3]
-    hg = h // G
-    Q = chunk
-    nc = s // Q
-    xc = x.reshape(b, nc, Q, h, p)
-    Bc = B.reshape(b, nc, Q, G, ds).transpose(2, 3)       # (b, c, G, Q, ds)
-    Cc = C.reshape(b, nc, Q, G, ds).transpose(2, 3)
-    dtc = dt.reshape(b, nc, Q, h)
-    cum = torch.cumsum((dt * A).reshape(b, nc, Q, h), dim=2)
-
-    # within a chunk: y_diag[q] = sum_k (C_q . B_k) L[q, k] dt_k x_k, as one
-    # (b, c, h, q, k) weight times x over k
-    cum_h = cum.permute(0, 1, 3, 2)                       # (b, c, h, Q)
-    scores = Cc @ Bc.transpose(-1, -2)                    # (b, c, G, q, k)
-    M = (scores[:, :, :, None] * _decay_mask(cum_h).view(b, nc, G, hg, Q, Q)
-         * dtc.permute(0, 1, 3, 2).reshape(b, nc, G, hg, 1, Q)).reshape(
-             b, nc, h, Q, Q)                              # (b, c, h, q, k)
-    y_diag = (M @ xc.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
-
-    # chunk states: S_c = sum_k exp(cum_last - cum_k) dt_k B_k (x) x_k, one
-    # (ds, h/G, p) state a (row, group), (b G, c, ds, h/G, p)
-    suffix = torch.exp(cum[:, :, -1:, :] - cum)          # (b, c, Q, h)
-    xw = xc * (suffix * dtc)[..., None]
-    S_c = (Bc.transpose(-1, -2) @ xw.reshape(b, nc, Q, G, hg * p).transpose(
-        2, 3)).transpose(1, 2).reshape(b * G, nc, ds, hg, p)
-
-    # between chunks: S_prev[c] = exp(total[c-1]) S_prev[c-1] + S_c[c-1]
-    total = torch.exp(cum[:, :, -1, :])                   # (b, c, h)
-    S = (x.new_zeros((b * G, ds, hg, p)) if initial_state is None
-         else initial_state.view(b, G, hg, ds, p).transpose(2, 3).reshape(
-             b * G, ds, hg, p))
-    prevs = []
-    for c in range(nc):
-        prevs.append(S)
-        S = S * total[:, c].view(b, G, hg).reshape(b * G, 1, hg, 1) + S_c[:, c]
-    S_prevs = torch.stack(prevs, dim=1)                   # (b G, c, ds, hg, p)
-
-    # from earlier chunks: y_off[q] = exp(cum_q) C_q . S_prev
-    y_off = (Cc @ S_prevs.view(b, G, nc, ds, hg * p).transpose(1, 2)
-             ).transpose(2, 3).reshape(b, nc, Q, h, p) * torch.exp(cum)[
-                 ..., None]
-    return ((y_diag + y_off).reshape(b, s, h, p),
-            S.view(b, G, ds, hg, p).transpose(2, 3).reshape(b, h, ds, p))
 
 
 def _ssd_on_mesh(x, dt, A, B, C, D, chunk, initial_state):

@@ -36,11 +36,6 @@ from .optimizer import AdamWConfig, adamw_update
 __all__ = ["AUX_COEF", "make_loss_fn", "make_train_step", "value_and_grad"]
 
 AUX_COEF = 0.01
-# Wire columns one RRNS repair pass holds at once: the repair's temporaries
-# are a few times this many int32 per channel (about 1.3 GB at 2**24 on a
-# five-channel codec), where one pass over a 10**9-element wire would need
-# several times the wire itself.
-REPAIR_COLUMNS = 1 << 24
 
 
 def make_loss_fn(cfg):
@@ -140,23 +135,11 @@ def psum(t, group):
 
 def _repair(codec, wire):
     """RRNS locate-and-correct on the local channel-major wire array, in
-    place: on the card one pass of the repair kernel over the whole wire
-    (``GradCodec.repair_columns_``), elsewhere ``correct_packed``
-    REPAIR_COLUMNS columns at a time (each column is its own codeword, so
-    the passes give the bits of one pass over the whole buffer; the chunks
-    bound the temporaries).  Returns the int64 counts of repaired and of
-    unrepairable columns, on the wire's device."""
-    res = wire.residues
-    if codec.takes_repair_kernel(res):
-        return codec.repair_columns_(res)[0][:2]
-    counts = torch.zeros(2, dtype=torch.int64, device=res.device)
-    for a in range(0, res.shape[1], REPAIR_COLUMNS):
-        part = codec.as_array(res[:, a : a + REPAIR_COLUMNS],
-                              channel_major=True)
-        fixed, fault = codec.correct_packed(part)
-        res[:, a : a + REPAIR_COLUMNS] = fixed.residues
-        counts += torch.stack([(fault >= 0).sum(), (fault == -2).sum()])
-    return counts
+    place: one ``GradCodec.repair_columns_`` call over the whole wire (the
+    repair kernel on the card, its plain version elsewhere).  Returns the
+    int64 counts of repaired and of unrepairable columns, on the wire's
+    device."""
+    return codec.repair_columns_(wire.residues)[0][:2]
 
 
 def _place(t, like):

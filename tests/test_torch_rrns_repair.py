@@ -1,7 +1,6 @@
 """The RRNS repair in one pass (``repro_torch.kernels.rrns_repair``: the
 CUDA kernel ``csrc/rrns_repair.cu`` and its plain torch version) against
-the port's own locate-and-correct, ``GradCodec._fault_scan`` +
-``_verdict`` + ``correct_packed``'s fix.
+the all-column survivor scan, ``rrns_repair.survivor_scan`` and the fix.
 
 On the CPU: ``rrns_repair_plain`` (which ``rrns_repair_op`` takes for a
 host tensor) on seeded codewords with planted faults; ``emulate_kernel``,
@@ -10,11 +9,13 @@ at the offset the source computes (the clean test's lazy MRC step and
 ``mod_mulhi`` with the ranges their exactness needs asserted, the survivor
 scan in wrapping int32); the clean test against an independent CRT oracle
 and, over every codeword of a small 5-channel base, the equivalence it
-rests on (clean => verdict -1); the routes of ``train_step._repair``,
-``correct_packed`` and ``locate_fault`` to the kernel, with the kernel's
-predicate forced.  On the card (marked ``cuda``): the kernel against the
-plain version, ``correct_packed`` on the card against the CPU, and a wire
-of 5 x 429,496,730 residues (past 2**31) with faults at its last columns.
+rests on (clean => verdict -1); the one route of ``train_step._repair``,
+``correct_packed`` and ``locate_fault``: one ``rrns_repair_op`` call each,
+the plain version's passes giving the words, verdicts and counts of the
+all-column scan.  On the card (marked ``cuda``): the kernel against the
+plain version, ``correct_packed`` on the card against the CPU, the refusal
+of an operand the kernel does not take, and a wire of 5 x 429,496,730
+residues (past 2**31) with faults at its last columns.
 
 The file imports no JAX: it runs as it is on the card's machine.
 
@@ -33,7 +34,8 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import rrns_repair as rr
 from repro_torch.kernels.rrns_repair import (LAYOUT_FIELDS, repair_layout,
                                              rrns_repair_kernel_call,
-                                             rrns_repair_plain)
+                                             rrns_repair_plain, survivor_scan,
+                                             survivor_tables)
 from repro_torch.train import train_step as ts
 
 M32 = 0xFFFFFFFF
@@ -111,12 +113,12 @@ def case_words(codec, case, wraps, seed, B=3000):
 
 
 def reference(codec, x, wraps):
-    """``correct_packed``'s plain route on the (nch, B) words: the fixed
-    words and the verdicts."""
-    ok, fixes = codec._fault_scan(x.T, wraps)
-    fault = codec._verdict(ok)
-    hit = fault[:, None] == torch.arange(x.shape[0], dtype=torch.int32)
-    return torch.where(hit, fixes.to(x.dtype), x.T).T, fault
+    """The survivor scan of every column of the (nch, B) words and its
+    fix: the fixed words and the verdicts."""
+    fault, fixes = survivor_scan(codec, x, wraps)
+    rows = torch.arange(x.shape[0], dtype=torch.int32)[:, None]
+    hit = fault[None, :] == rows
+    return torch.where(hit, fixes, x), fault
 
 
 def clean_oracle(codec, x) -> np.ndarray:
@@ -320,8 +322,8 @@ def test_kernel_emulation_matches_plain(case, wraps):
 @pytest.mark.parametrize("wraps", (0, 3, 9))
 def test_clean_test_implies_clean_verdict_on_every_codeword(wraps):
     """Every 5-tuple of residues of a small base, (3, 5, 7) with m_a 13 and
-    m_b 11: where the clean test passes, ``_fault_scan``'s verdict is -1;
-    the plain version equals ``_fault_scan`` on every tuple."""
+    m_b 11: where the clean test passes, ``survivor_scan``'s verdict is -1;
+    the plain version equals the all-column scan on every tuple."""
     codec = GradCodec(base=RNSBase(moduli=(3, 5, 7), ma=13, bits=4),
                       frac_bits=0, world=1, mb=11)
     ms = channels(codec)
@@ -345,13 +347,11 @@ def test_clean_test_implies_clean_verdict_on_every_codeword(wraps):
 
 
 def test_image_holds_the_survivor_tables():
-    from repro_torch.dist.grad_codec import _survivor_tables
-
     codec = rrns_codec()
     for wraps in WRAPS:
         T = tables_of(image(codec, wraps).numpy(), codec.base.n)
-        tables = _survivor_tables(codec.base.moduli, codec.redundant,
-                                  codec.base.bits, wraps)
+        tables = survivor_tables(codec.base.moduli, codec.redundant,
+                                 codec.base.bits, wraps)
         eq(T["mod"], channels(codec))
         eq(T["beta"], codec.base.betas_for(codec.redundant))
         eq(T["inv"], codec.base.inv_tri_np)
@@ -393,7 +393,6 @@ def test_cpu_op_takes_the_plain_version_and_counts_no_launch():
     eq(counts, want_counts)
     assert ops.rrns_repair_op(codec, x)[1] is None
     assert ops.reset_launches()["rrns_repair_op"] == 0
-    assert not codec.takes_repair_kernel(x)
 
 
 def test_refusals():
@@ -417,47 +416,48 @@ def test_refusals():
                            wraps=10 ** 9)
     with pytest.raises(ValueError, match="CUDA"):
         rrns_repair_kernel_call(torch.zeros(5, 3, dtype=torch.int32), img)
-    assert not codec.takes_repair_kernel(
-        torch.zeros(5, 3, dtype=torch.int64))
 
 
 @pytest.fixture
-def kernel_route(monkeypatch):
-    """The kernel's route with its predicate forced on a host tensor: the
-    same calls as on the card, ``rrns_repair_op`` taking the plain
-    version.  Yields the list of the op's calls."""
+def op_calls(monkeypatch):
+    """The shapes of the codewords ``rrns_repair_op`` is called on, the
+    call itself left as it is."""
     calls = []
     real = ops.rrns_repair_op
 
     def op(*args, **kw):
-        calls.append(args[1].shape)
+        calls.append(tuple(args[1].shape))
         return real(*args, **kw)
 
-    monkeypatch.setattr(GradCodec, "takes_repair_kernel",
-                        lambda self, t: t.dtype == torch.int32)
     monkeypatch.setattr(ops, "rrns_repair_op", op)
-    yield calls
+    return calls
 
 
-def test_repair_route_is_one_call_with_the_chunked_bits(kernel_route,
+def test_repair_route_is_one_call_with_the_chunked_bits(op_calls,
                                                         monkeypatch):
+    """``train_step._repair`` makes one ``rrns_repair_op`` call over the
+    whole wire; the plain version's passes of REPAIR_COLUMNS columns give
+    the words, verdicts and counts of the all-column survivor scan."""
     codec = rrns_codec()
     x = case_words(codec, "x0_and_m_minus_1", 0, seed=7, B=1000)
-    chunked = x.clone()
-    with monkeypatch.context() as mp:
-        mp.setattr(ts, "REPAIR_COLUMNS", 300)
-        mp.setattr(GradCodec, "takes_repair_kernel", lambda self, t: False)
-        want = ts._repair(codec, codec.as_array(chunked, channel_major=True))
+    want_fixed, want_fault = reference(codec, x, 0)
+    want = [int((want_fault >= 0).sum()), int((want_fault == -2).sum())]
+    monkeypatch.setattr(rr, "REPAIR_COLUMNS", 300)
+    passes = x.clone()
+    counts, verdict = rrns_repair_plain(codec, passes, verdict=True)
+    eq(passes, want_fixed)
+    eq(verdict, want_fault)
+    assert counts.tolist() == want + [int((~clean_oracle(codec, x)).sum())]
     got = ts._repair(codec, codec.as_array(x, channel_major=True))
-    assert kernel_route == [(5, 1000)]
-    eq(x, chunked)
-    assert got.dtype == torch.int64 and got.tolist() == want.tolist()
+    assert op_calls == [(5, 1000)]
+    eq(x, want_fixed)
+    assert got.dtype == torch.int64 and got.tolist() == want
     assert got.tolist() == [100, 0]
 
 
 @pytest.mark.parametrize("layout", ("leaf_major", "channel_major_view",
                                     "typed_array"))
-def test_correct_and_locate_route_match_fault_scan(kernel_route, layout):
+def test_correct_and_locate_route_match_fault_scan(op_calls, layout):
     codec = rrns_codec()
     x = case_words(codec, "two_channels", 0, seed=8, B=700)
     x[:, :70] = case_words(codec, "fault_c4", 0, seed=9, B=700)[:, :70]
@@ -470,7 +470,7 @@ def test_correct_and_locate_route_match_fault_scan(kernel_route, layout):
     before = x.clone()
     fixed, fault = codec.correct_packed(arg)
     located = codec.locate_fault(arg)
-    assert len(kernel_route) == 2
+    assert op_calls == [(5, 700)] * 2
     want_fixed, want_fault = reference(codec, x, 0)
     eq(fault, want_fault)
     eq(located, want_fault)
@@ -524,9 +524,10 @@ def test_cuda_kernel_matches_plain(card, wraps):
 def test_cuda_correct_packed_matches_cpu(card):
     codec = rrns_codec()
     x = case_words(codec, "two_channels", 0, seed=11, B=50_000)
-    assert codec.takes_repair_kernel(x.to(card))
     for arg in (x.T.contiguous(), x.T):
+        ops.reset_launches()
         fixed, fault = codec.correct_packed(arg.to(card))
+        assert ops.reset_launches()["rrns_repair_op"] == 1
         want_fixed, want_fault = codec.correct_packed(arg)
         eq(fixed, want_fixed)
         eq(fault, want_fault)
@@ -535,6 +536,24 @@ def test_cuda_correct_packed_matches_cpu(card):
     assert repaired.device.type == "cuda"
     assert repaired.tolist() == [int((want_fault >= 0).sum()),
                                  int((want_fault == -2).sum())]
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_what_the_kernel_does_not_take(card):
+    """On the card the kernel runs or the op raises: a 20-bit base (int64
+    lanes), int64 codewords, four base channels."""
+    wide = GradCodec.make(world=2, n=2, bits=20, correct=True)
+    with pytest.raises(ValueError, match="bits<=15"):
+        wide.correct_packed(torch.zeros((3, 4), dtype=torch.int64,
+                                        device=card))
+    with pytest.raises(ValueError, match="int32"):
+        ops.rrns_repair_op(rrns_codec(), torch.zeros((5, 3),
+                                                     dtype=torch.int64,
+                                                     device=card))
+    four = GradCodec.make(world=2, n=4, bits=15, correct=True)
+    with pytest.raises(ValueError, match="base channels"):
+        four.correct_packed(torch.zeros((3, 6), dtype=torch.int32,
+                                        device=card))
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from repro_torch import spans
 from repro_torch.configs import get_config
 from repro_torch.dist._tree import flatten_named
 from repro_torch.dist.grad_codec import GradCodec
+from repro_torch.kernels import rrns_repair
 from repro_torch.launch.train import _corrupt_wire
 from repro_torch.models import init_params
 from repro_torch.models.ssm_models import ssm_prefill
@@ -34,8 +35,7 @@ MODEL = {"train.step", "train.forward", "train.backward", "train.ce",
          "ssm.mixer.bwd", "ssm.conv", "ssm.conv.bwd", "ssm.ssd",
          "ssm.ssd.bwd", "remat.recompute", "optim.adamw"}
 CODEC = {"codec.pack", "codec.repair", "codec.wire", "codec.decode"}
-RRNS = {"rrns.mrc", "rrns.compare", "rrns.extend", "rrns.verdict",
-        "rrns.fix"}
+RRNS = {"rrns.scan"}
 NODES = {"_OpenBackward", "_CloseBackward"}
 
 
@@ -158,23 +158,21 @@ def test_profiled_step_has_the_model_and_step_spans(tmp_path):
 def test_profiled_codec_step_has_the_codec_and_rrns_spans(gloo1, tmp_path,
                                                           monkeypatch):
     """A codec step with the RRNS repair and one injected wire fault: every
-    ``codec.*`` and ``rrns.*`` span, one MRC a channel a repair pass (the
-    wire cut into three passes here), the repair and the scan's spans inside
-    ``codec.repair``, the decode inside ``optim.adamw``."""
+    ``codec.*`` span and one ``rrns.scan``, the repair's one call over the
+    wire (the plain version cuts it into three passes here, none of them a
+    span), inside ``codec.repair``; the decode inside ``optim.adamw``."""
     codec = GradCodec.make(world=2, correct=True)
     n = sum(p.numel() for _, p in flatten_named(init_params(CFG, 0, "cpu")))
-    monkeypatch.setattr(ts, "REPAIR_COLUMNS", -(-n // 3))
+    monkeypatch.setattr(rrns_repair, "REPAIR_COLUMNS", -(-n // 3))
     step = ts.make_train_step(CFG, OPT, rns_codec=codec, group=gloo1,
                               rns_repair=True,
                               transport_hook=_corrupt_wire(codec))
     _, metrics, ranges = run_step(step, True, tmp_path)
     assert int(metrics["repaired"]) == 1 and int(metrics["unrepairable"]) == 0
     assert MODEL | CODEC | RRNS <= {r[0] for r in ranges}
-    assert len(names(ranges, "rrns.mrc")) == codec.n_channels * 3
-    for name in ("rrns.compare", "rrns.extend"):
-        assert len(names(ranges, name)) == codec.n_channels * 3, name
-    for name in ("rrns.verdict", "rrns.fix"):
-        assert len(names(ranges, name)) == 3, name
+    assert not [r for r in ranges if r[0].startswith("rrns.")
+                and r[0] not in RRNS]
+    assert len(names(ranges, "rrns.scan")) == 1
     (rep,), (adam,) = names(ranges, "codec.repair"), names(ranges,
                                                            "optim.adamw")
     assert all(inside(r, rep) for r in ranges if r[0].startswith("rrns."))

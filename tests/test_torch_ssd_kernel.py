@@ -160,9 +160,9 @@ def test_decay_regime_gradients_finite(groups):
 @pytest.mark.parametrize("case", ["one_group_3d", "y_only", "state_only"])
 def test_ssd_op_function_on_cpu(case):
     """``ops.ssd_op`` on CPU tensors is the plain version,
-    ``ssm.ssd_plain``: y, the final state and every gradient bit for bit,
-    no launch counted.  B and C without a group axis ("one_group_3d"); a
-    loss of y alone or of the final state alone (which C does not reach:
+    ``kernels.ssd.ssd_plain``: y, the final state and every gradient bit for
+    bit, no launch counted.  B and C without a group axis ("one_group_3d");
+    a loss of y alone or of the final state alone (which C does not reach:
     its gradient is zeros)."""
     b, s, h, p, ds, Q = SHAPES["ragged"]
     ins = _inputs(b, s, h, p, 1, ds, seed=21)
@@ -184,7 +184,7 @@ def test_ssd_op_function_on_cpu(case):
     before = ops.ssd_op.launches
     got = run(ops.ssd_op)
     assert ops.ssd_op.launches == before
-    for name, g, w in zip(("y", "final") + GRADS, got, run(ssm.ssd_plain)):
+    for name, g, w in zip(("y", "final") + GRADS, got, run(K.ssd_plain)):
         assert torch.equal(g, w), name
 
 
